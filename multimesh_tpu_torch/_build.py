@@ -1,0 +1,114 @@
+"""Build the CUDA kernels of ``csrc/`` and bind them with ctypes.
+
+Every ``csrc/*.cu`` file exposes a plain C entry point (pointers, sizes
+and the CUDA stream as arguments, the launch's ``cudaError_t`` as the
+return value), so one ``nvcc`` call compiles all of them into a single
+shared library in seconds -- no PyTorch headers are involved.  The
+library lands in ``_build/`` next to this file, named by a hash of the
+sources and flags: an edit to any kernel rebuilds it on first use, and
+an unchanged tree reuses it.
+
+Nothing here falls back: a missing ``nvcc`` or a failed compile raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+_HERE = pathlib.Path(__file__).resolve().parent
+SOURCE_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+# entry point -> argtypes (restype is int: the cudaError_t of the launch)
+_SIGNATURES = {
+    # points, ids, ctr, inv_scale, nodes, M, E, order, dim, iters, clamp,
+    # refs, res, stream
+    "mmt_newton_rows": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                        _F32, _P, _P, _P),
+    # queries, centroids, C, E, dim, out, stream
+    "mmt_nearest_centroid": (_P, _P, _I64, _I64, _I32, _P, _P),
+}
+
+_library = None
+build_log: str = ""  # nvcc/ptxas output of this process's compile
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+            "kernels of multimesh_tpu_torch cannot be built"
+        )
+    return path
+
+
+def library_path() -> pathlib.Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(SOURCE_DIR.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmmt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    # private temporary name, then an atomic rename: concurrent builders
+    # (several test processes) never load a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(SOURCE_DIR.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.mmt_error_string.argtypes = [ctypes.c_int]
+        lib.mmt_error_string.restype = ctypes.c_char_p
+        _library = lib
+    return _library
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.mmt_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

@@ -1,0 +1,218 @@
+"""Synthetic mesh fixtures for tests and the on-card smoke run.
+
+The numpy parts of the JAX package's ``testing.py``: structured hexahedral GLL
+meshes over boxes and spherical shells, and smooth analytic fields that
+interpolation must reproduce.  The same arguments give the same arrays
+as the JAX package's fixtures.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .core import gll
+
+
+@dataclasses.dataclass
+class StructuredMesh:
+    """A structured hex mesh with GLL lattice nodes per element.
+
+    points:        [nelem, n_gll, dim]  node coordinates (canonical order)
+    connectivity:  [nelem, 2^dim]       corner-vertex indices into `vertices`
+    vertices:      [nvert, dim]         unique corner vertices
+    order:         polynomial order of the per-element lattice
+    layer_id:      [nelem]              integer layer of each element
+    """
+
+    points: np.ndarray
+    connectivity: np.ndarray
+    vertices: np.ndarray
+    order: int
+    layer_id: np.ndarray
+
+    @property
+    def nelem(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.points.shape[2]
+
+    @property
+    def n_gll(self) -> int:
+        return self.points.shape[1]
+
+    def centroids(self) -> np.ndarray:
+        return self.points.mean(axis=1)
+
+
+def _structured_corners(shape, dim):
+    """Vertex grid + per-element corner connectivity for a structured grid
+    (canonical corner order, matching gll.corner_indices)."""
+    nv = [s + 1 for s in shape]
+    vert_idx = np.arange(int(np.prod(nv))).reshape(nv)
+    grids = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    if dim == 3:
+        i, j, k = grids
+        cols = [
+            vert_idx[i + a, j + b, k + c_].ravel()
+            for a in (0, 1) for b in (0, 1) for c_ in (0, 1)
+        ]
+    else:
+        i, j = grids
+        cols = [
+            vert_idx[i + a, j + b].ravel()
+            for a in (0, 1) for b in (0, 1)
+        ]
+    return np.stack(cols, axis=-1).astype(np.int64)
+
+
+def box_mesh(
+    shape=(4, 4, 4),
+    order: int = 4,
+    extent=None,
+    warp: float = 0.0,
+    seed: int = 0,
+) -> StructuredMesh:
+    """Structured box mesh of hex elements with GLL lattices.
+
+    ``warp`` > 0 applies a smooth sinusoidal deformation to interior
+    vertices (elements become non-affine but stay valid for warp <~ 0.2).
+    """
+    dim = len(shape)
+    if extent is None:
+        extent = [(0.0, 1.0)] * dim
+    axes = [np.linspace(lo, hi, s + 1) for (lo, hi), s in zip(extent, shape)]
+    grids = np.meshgrid(*axes, indexing="ij")
+    vertices = np.stack([g.ravel() for g in grids], axis=-1)
+
+    conn = _structured_corners(shape, dim)
+
+    # per-element GLL lattice through the (possibly warped) geometry map,
+    # evaluated at the physical lattice positions so warped elements are
+    # genuinely curved
+    lat = gll.lattice_coords(order, dim)  # [n, dim] in [-1,1]
+    corners = vertices[conn]  # [E, 2^dim, dim]
+    corner_ref = gll.lattice_coords(1, dim)  # [2^dim, dim]
+    tri_basis = np.prod(
+        1.0 + lat[:, None, :] * corner_ref[None, :, :], axis=-1
+    ) / (2.0**dim)  # [n, 2^dim]
+    points = np.einsum("nc,ecd->end", tri_basis, corners)
+
+    if warp > 0.0:
+        spans = np.array([hi - lo for lo, hi in extent])
+        lo = np.array([lo for lo, hi in extent])
+        u = (points - lo) / spans  # in [0,1]^d
+        bump = np.sin(np.pi * u)  # vanishes on every face
+        disp = np.zeros_like(points)
+        for d in range(dim):
+            # the extra bump[..., d] factor keeps the displacement zero on
+            # the faces, so the warped mesh still covers the nominal box
+            disp[..., d] = (
+                spans[d]
+                * warp**2
+                * bump[..., d]
+                * bump[..., (d + 1) % dim]
+                * bump[..., (d + 2) % dim if dim == 3 else (d + 1) % dim]
+                * 0.5
+            )
+        points = points + disp
+        ci = gll.corner_indices(order, dim)
+        flat_conn = conn.ravel()
+        vertices = vertices.copy()
+        vertices[flat_conn] = points[:, ci, :].reshape(-1, dim)
+
+    layer_id = np.zeros(conn.shape[0], dtype=np.int64)
+    return StructuredMesh(points, conn, vertices, order, layer_id)
+
+
+def shell_mesh(
+    n_lat: int = 6,
+    n_lon: int = 8,
+    n_rad: int = 3,
+    order: int = 4,
+    r_inner: float = 3.48e6,
+    r_outer: float = 6.371e6,
+    lat_extent=(0.5, 1.2),
+    lon_extent=(0.3, 1.4),
+    n_layers: int = 1,
+) -> StructuredMesh:
+    """Curved spherical-shell mesh chunk at Earth scale.
+
+    Element GLL nodes lie on exact spherical surfaces, as in global
+    seismic (Salvus) meshes; radial element bands get descending layer
+    ids (outermost layer has the largest id).
+    """
+    shape = (n_rad, n_lat, n_lon)
+    mesh = box_mesh(
+        shape=shape,
+        order=order,
+        extent=[(r_inner, r_outer), lat_extent, lon_extent],
+    )
+
+    def to_cart(p):
+        r, theta, phi = p[..., 0], p[..., 1], p[..., 2]
+        return np.stack(
+            [
+                r * np.sin(theta) * np.cos(phi),
+                r * np.sin(theta) * np.sin(phi),
+                r * np.cos(theta),
+            ],
+            axis=-1,
+        )
+
+    points = to_cart(mesh.points)
+    vertices = to_cart(mesh.vertices)
+    band = (np.arange(mesh.nelem) // (n_lat * n_lon)).astype(np.int64)
+    group = (band * n_layers) // n_rad
+    layer_id = group + 1
+    return StructuredMesh(points, mesh.connectivity, vertices, mesh.order,
+                          layer_id)
+
+
+def smooth_field(points: np.ndarray, kind: str = "smooth",
+                 scale: float | None = None) -> np.ndarray:
+    """Analytic scalar fields for transfer-accuracy tests.
+
+    ``points`` [..., dim] -> [...].  "smooth" is infinitely differentiable
+    (interpolation error decays spectrally); "linear" must be reproduced to
+    round-off by any order >= 1.  ``scale`` normalizes coordinates and MUST
+    be consistent between mesh-sampled and truth evaluations; by default
+    small-coordinate inputs use 1.0 and Earth-scale inputs use R_EARTH.
+    """
+    if scale is None:
+        scale = 1.0 if float(np.max(np.abs(points))) <= 100.0 else 6.371e6
+    u = points / scale
+    if kind == "linear":
+        out = 2.0 + u[..., 0] + 0.5 * u[..., 1]
+        if points.shape[-1] == 3:
+            out = out - 0.25 * u[..., 2]
+        return out
+    if kind == "smooth":
+        out = (
+            4.5
+            + np.sin(3.0 * u[..., 0])
+            * np.cos(2.0 * u[..., 1] + 0.5)
+        )
+        if points.shape[-1] == 3:
+            out = out + 0.3 * np.sin(2.0 * u[..., 2] + 1.0)
+        return out
+    raise ValueError(kind)
+
+
+def element_nodal_field(mesh: StructuredMesh, kind: str = "smooth"):
+    """Sample a smooth_field at every GLL node: [nelem, n_gll]."""
+    return smooth_field(mesh.points, kind=kind)
+
+
+def shell_targets(n_points: int, seed: int = 0) -> np.ndarray:
+    """``n_points`` random targets [n, 3] inside the default shell_mesh
+    chunk (the JAX package's bench.py draw, from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(3.6e6, 6.3e6, n_points)
+    th = rng.uniform(0.55, 1.15, n_points)
+    ph = rng.uniform(0.35, 1.35, n_points)
+    return np.stack(
+        [r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+         r * np.cos(th)], -1)

@@ -16,6 +16,8 @@ setup(
         "TPU-native mesh-to-mesh interpolation framework (JAX/XLA/Pallas)"
     ),
     packages=find_packages(exclude=["tests"]),
+    # the CUDA sources multimesh_tpu_torch compiles with nvcc on first use
+    package_data={"multimesh_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",

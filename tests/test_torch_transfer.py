@@ -1,0 +1,205 @@
+"""The slice as a whole: ``TransferOperator.build(...).apply(...)`` of the
+port against the JAX package's ``TransferOperator``, the exchange of
+operator state between the two packages (``from_numpy``, ``save`` and
+``load`` in one on-disk format), and the port's independence from JAX.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from multimesh_tpu import testing as jmt  # noqa: E402
+from multimesh_tpu.config import LocateConfig, Precision  # noqa: E402
+from multimesh_tpu.hashing import content_fingerprint  # noqa: E402
+from multimesh_tpu.ops import TransferOperator as JOp  # noqa: E402
+from multimesh_tpu_torch import TransferOperator as TOp  # noqa: E402
+from multimesh_tpu_torch import config as tconfig  # noqa: E402
+from multimesh_tpu_torch.hashing import (  # noqa: E402
+    content_fingerprint as t_fingerprint,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N = 2048
+ORDER = 4
+
+
+@pytest.fixture(scope="module")
+def slice_case():
+    """The slice's configuration cut to a few elements: the order-4
+    shell (E = 80), targets drawn as bench.py draws them (all inside the
+    shell), 3 parameters, snap fallback, MIXED precision."""
+    mesh = jmt.shell_mesh(n_lat=4, n_lon=5, n_rad=4, order=ORDER)
+    rng = np.random.default_rng(5)
+    r = rng.uniform(3.6e6, 6.3e6, N)
+    th = rng.uniform(0.55, 1.15, N)
+    ph = rng.uniform(0.35, 1.35, N)
+    pts = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+                    r * np.cos(th)], -1)
+    base = jmt.element_nodal_field(mesh, "smooth")
+    fields = np.stack([base * (1 + 0.1 * i) for i in range(3)])
+    return mesh, pts, fields
+
+
+@pytest.fixture(scope="module")
+def jax_op(slice_case):
+    mesh, pts, _ = slice_case
+    cfg = LocateConfig(nelem_to_search=20, precision=Precision.MIXED)
+    return JOp.build(mesh.points, pts, order=ORDER, cfg=cfg,
+                     fallback="snap")
+
+
+@pytest.fixture(scope="module")
+def torch_op(slice_case):
+    mesh, pts, _ = slice_case
+    cfg = tconfig.LocateConfig(nelem_to_search=20,
+                               precision=tconfig.Precision.MIXED)
+    return TOp.build(mesh.points, pts, order=ORDER, cfg=cfg,
+                     fallback="snap", device="cpu")
+
+
+def test_build_apply_matches_jax(slice_case, jax_op, torch_op):
+    """Every target is inside the shell, so both operators accept every
+    row; elements agree on >= 95% (a point on a shared face belongs to
+    either element), and the applied values agree to rtol 1e-5 on every
+    row -- f32 refs move an interpolated value by ~1e-7 relative, and on
+    a shared face both elements interpolate the same continuous field."""
+    mesh, pts, fields = slice_case
+    want = np.asarray(jax_op.apply(fields))
+    got = torch_op.apply(torch.from_numpy(fields))
+    assert got.shape == (N, 3) and got.dtype == torch.float32
+    assert torch_op.found.all() and torch_op.num_missing == 0
+    assert (torch_op.elements.numpy() == np.asarray(jax_op.elements)).mean() \
+        >= 0.95
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def test_accuracy_against_the_analytic_field(slice_case, jax_op, torch_op):
+    """The interpolation error against the analytic field is the mesh's,
+    not the port's: at most the JAX operator's error plus 1e-6."""
+    mesh, pts, fields = slice_case
+    truth = jmt.smooth_field(pts)
+    got = torch_op.apply(torch.from_numpy(fields[0])).numpy()
+    want = np.asarray(jax_op.apply(fields[0]))
+    err_t = np.max(np.abs(got - truth) / np.abs(truth))
+    err_j = np.max(np.abs(want - truth) / np.abs(truth))
+    assert err_t <= err_j + 1e-6, (err_t, err_j)
+
+
+def test_single_field_and_chunked_apply(slice_case, torch_op):
+    """One field [E, n] gives [N]; apply chunks agree with one chunk."""
+    _, _, fields = slice_case
+    stack = torch_op.apply(torch.from_numpy(fields))
+    one = torch_op.apply(torch.from_numpy(fields[1]))
+    chunked = torch_op.apply(torch.from_numpy(fields), chunk=300)
+    assert one.shape == (N,)
+    assert torch.equal(one, stack[:, 1])
+    np.testing.assert_allclose(chunked.numpy(), stack.numpy(), rtol=1e-6)
+
+
+def test_weights_match_jax(jax_op, torch_op):
+    """Weights materialised from the refs: where the elements agree the
+    basis at f32 refs matches the JAX weights to 1e-5 (absolute, on
+    weights of magnitude <= ~1)."""
+    same = torch_op.elements.numpy() == np.asarray(jax_op.elements)
+    np.testing.assert_allclose(torch_op.weights.numpy()[same],
+                               np.asarray(jax_op.weights)[same], atol=1e-5)
+
+
+def test_from_numpy_carries_jax_state(slice_case, jax_op):
+    """The JAX operator's state as numpy arrays applies in the port like
+    it does in JAX: the refs keep their f64 dtype, so rtol 1e-6 (sums in
+    another order)."""
+    _, _, fields = slice_case
+    op = TOp.from_numpy(np.asarray(jax_op.elements), np.asarray(jax_op.refs),
+                        np.asarray(jax_op.found), ORDER, device="cpu")
+    assert op.refs.dtype == torch.float64
+    np.testing.assert_allclose(op.apply(torch.from_numpy(fields)).numpy(),
+                               np.asarray(jax_op.apply(fields)), rtol=1e-6)
+
+
+def test_jax_saved_operator_loads_in_port(slice_case, jax_op, tmp_path):
+    """JAX save -> port load (with the fingerprint check) -> apply."""
+    mesh, pts, fields = slice_case
+    fp = content_fingerprint(mesh.points, pts)
+    recon = np.random.default_rng(0).integers(0, N, 3000)
+    jax_op.recon = recon
+    try:
+        jax_op.save(tmp_path, fingerprint=fp)
+        want = np.asarray(jax_op.apply(fields))
+    finally:
+        jax_op.recon = None
+    assert TOp.exists(tmp_path)
+    op = TOp.load(tmp_path, fingerprint=fp, device="cpu")
+    got = op.apply(torch.from_numpy(fields)).numpy()
+    assert got.shape == (3000, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_port_saved_operator_loads_in_jax(slice_case, torch_op, tmp_path):
+    """Port save -> JAX load -> apply, compact and dense formats."""
+    mesh, pts, fields = slice_case
+    fp = t_fingerprint(mesh.points, pts)
+    want = torch_op.apply(torch.from_numpy(fields)).numpy()
+    for dense in (False, True):
+        d = tmp_path / ("dense" if dense else "compact")
+        torch_op.save(d, fingerprint=fp, dense=dense)
+        assert os.path.exists(d / ("coeffs.npy" if dense else "refs.npy"))
+        op = JOp.load(d, fingerprint=fp)
+        np.testing.assert_allclose(np.asarray(op.apply(fields)), want,
+                                   rtol=1e-6)
+        back = TOp.load(d, fingerprint=fp, device="cpu")
+        np.testing.assert_allclose(
+            back.apply(torch.from_numpy(fields)).numpy(), want, rtol=1e-6)
+
+
+def test_fingerprints_agree_and_load_refuses_another(slice_case, torch_op,
+                                                     tmp_path):
+    """Both packages hash alike, and a cache saved for other geometry
+    (or without a fingerprint) is refused, never applied."""
+    mesh, pts, _ = slice_case
+    fp = t_fingerprint(mesh.points, pts)
+    assert fp == content_fingerprint(mesh.points, pts)
+    torch_op.save(tmp_path / "a", fingerprint=fp)
+    with pytest.raises(ValueError, match="different geometry"):
+        TOp.load(tmp_path / "a", fingerprint=fp ^ 1, device="cpu")
+    torch_op.save(tmp_path / "b")
+    with pytest.raises(ValueError, match="different geometry"):
+        TOp.load(tmp_path / "b", fingerprint=fp, device="cpu")
+    assert not TOp.exists(tmp_path / "missing")
+
+
+def test_missing_elements_give_zero(slice_case):
+    """Element -1 (sentinel, not found) applies to 0, as in JAX."""
+    mesh, pts, fields = slice_case
+    op = TOp.build(mesh.points, pts[:64] * 3.0, order=ORDER, device="cpu")
+    assert op.num_missing == 64
+    assert (op.apply(torch.from_numpy(fields)) == 0).all()
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port loads neither JAX nor the JAX
+    package (a fresh interpreter, so this test's own imports do not
+    count)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import multimesh_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax'\n"
+        "             or k.startswith(('jax.', 'jaxlib'))\n"
+        "             or k == 'multimesh_tpu'\n"
+        "             or k.startswith('multimesh_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules\n"
+        "                 if k.startswith('multimesh_tpu_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    assert int(out.stdout.split()[1]) >= 14
