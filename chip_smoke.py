@@ -12,16 +12,37 @@ each on stdout:
    query chunk of the ``gll`` configuration;
 3. K1 (Newton rows) against its twin on 262,144 rows at order/dim 4/3,
    2/3, 1/3 and 2/2;
-4. the slice: ``TransferOperator.build(...).apply(...)`` at the ``gll``
+4. K4 (f64 polish) against its twin on 262,144 accepted K1 solves of
+   phase 3 at the same orders and dims, and on known refs;
+5. K5 (pair apply) against its twin on 262,144 rows, 3 parameters,
+   order 4, 3-D;
+6. the slice: ``TransferOperator.build(...).apply(...)`` at the ``gll``
    configuration -- an order-4 spherical-shell source of 4,096 elements,
    10,000,000 targets, 3 parameters, snap fallback -- once to warm up and
    once timed, with launch counts, accuracy against the analytic field
-   and the first chunk against the plain path on the card.
+   and the first chunk against the plain path on the card;
+7. the df32 slice: the same with ``LocateConfig(df32_polish=True)``
+   (K1, K2, K4, K5), warm and timed, held to max rel err < 1e-8, its
+   first chunk against the plain twins; then ``f64_polish=True`` once;
+8. the flagship options (``gll_2_gll``'s locate call): 2% of the
+   targets lifted just above the source's outer surface, ``fixed_ref``,
+   ``use_aabb``, ``prefilter_m=4``, ``accept_tol=1.04``, df32 polish;
+   the retried rows against the plain path; then 1M of those targets
+   through ``strategy="scan"`` and its trilinear prefilter (K1 at order
+   1).
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises: the script exits non-zero and prints no
 ``ok`` line, as it does without a CUDA device.
+
+    python3 chip_smoke.py --profile
+
+runs phase 1 and then, instead of the checks, times the slice, df32
+slice, f64_polish slice, flagship and scan runs warm and profiles each
+once with ``torch.profiler`` (see ``profile``).
 """
+import argparse
+import dataclasses
 import importlib.util
 import json
 import subprocess
@@ -34,13 +55,21 @@ import torch
 from multimesh_tpu_torch import TransferOperator, _build, testing
 from multimesh_tpu_torch.config import LocateConfig, Precision
 from multimesh_tpu_torch.search import locate as _locate
-from multimesh_tpu_torch.search import nearest, newton
+from multimesh_tpu_torch.core import shape
+from multimesh_tpu_torch.search import knn, nearest, newton, polish
 
 ROWS = 262_144  # one locate chunk
 N_TARGETS = 10_000_000
 ITERS = 18  # newton_iters + polish_iters of the default LocateConfig
 CONV_TOL = 1e-4  # the ladder's f32 convergence threshold
 ACCEPT_TOL = LocateConfig().accept_tol
+# the slice's locate configuration; the df32 slice adds the polish
+SLICE_CFG = LocateConfig(nelem_to_search=20, precision=Precision.MIXED)
+DF32_CFG = dataclasses.replace(SLICE_CFG, df32_polish=True)
+# gll_2_gll's locate call (the flagship options)
+FLAGSHIP_CFG = dataclasses.replace(DF32_CFG, accept_tol=1.04)
+FLAGSHIP_KW = dict(fallback="fixed_ref", use_aabb=True, prefilter_m=4)
+N_SCAN = 1_000_000  # targets of the strategy="scan" run
 
 
 def emit(obj):
@@ -50,6 +79,27 @@ def emit(obj):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def reset_launches():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    newton.newton_rows.launches = 0
+    newton.newton_rows.launches_order1 = 0
+    nearest.nearest.launches = 0
+    polish.polish_pairs.launches = 0
+    polish.apply_pairs.launches = 0
+
+
+def read_launches():
+    return {"newton_rows": newton.newton_rows.launches,
+            "newton_rows_order1": newton.newton_rows.launches_order1,
+            "nearest_centroid": nearest.nearest.launches,
+            "polish_pairs": polish.polish_pairs.launches,
+            "apply_pairs": polish.apply_pairs.launches}
+
+
+def max_rel(vals, truth):
+    return float(((vals.double() - truth).abs() / truth.abs()).max())
 
 
 def cuda_ms(fn, reps):
@@ -148,7 +198,9 @@ def _newton_rows(mesh, pts, dev, seed):
 
 
 def phase_newton(dev, gll_mesh, gll_pts):
-    """K1 against its twin at the main path's orders and dims."""
+    """K1 against its twin at the main path's orders and dims.  Returns
+    the kernels-line entry and, per case, (mesh, args, refs, res) for
+    phase 4."""
     rng = np.random.default_rng(1)
     box_pts = rng.uniform(0.0, 1.0, (ROWS, 2))
     cases = [
@@ -157,10 +209,11 @@ def phase_newton(dev, gll_mesh, gll_pts):
         (testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=1), gll_pts),
         (testing.box_mesh(shape=(64, 64), order=2, warp=0.1), box_pts),
     ]
-    entry = None
+    entry, solved = None, []
     for i, (mesh, pts) in enumerate(cases):
         args = _newton_rows(mesh, pts, dev, seed=10 + i)
         k_ref, k_res = newton.newton_rows(*args)
+        solved.append((mesh, args, k_ref, k_res))
         p_ref, p_res = newton.newton_refs_rows_ref(*args)
         torch.cuda.synchronize()
         kc, pc = k_res < CONV_TOL, p_res < CONV_TOL
@@ -213,45 +266,202 @@ def phase_newton(dev, gll_mesh, gll_pts):
                      "source": "multimesh_tpu_torch/csrc/newton_rows.cu",
                      "replaces": "multimesh_tpu/search/pallas_newton.py:261",
                      "max_abs_err": err_acc, "ms": ms, "plain_ms": plain_ms}
+            entry.update(_prefilter_time(dev, mesh, args))
+    return entry, solved
+
+
+def _prefilter_time(dev, mesh, args):
+    """K3's order-1 use as the scan's prefilter runs it: one launch over
+    the 12 nearest candidates of each of ROWS points, 8 steps on the
+    element corners; against its twin, both in the solves and in the 4
+    columns ``_prefilter_rank`` keeps.  The shell's symmetric neighbours
+    tie to an ulp, so kept columns are held equal only where the 4th and
+    5th best scores are more than 1e-5 apart, and elsewhere held to the
+    same scores."""
+    cfg = LocateConfig()
+    m = 4
+    prep = _locate._mesh_prep(mesh.points, mesh.order, dev)
+    pts = args[0]
+    cand = knn.knn(prep.centroids, pts, cfg.prefilter_pool)[1]
+    pre = (pts.repeat(cand.shape[1], 1), cand.T.reshape(-1), prep.ctr,
+           prep.inv_scale, prep.corners, 1, mesh.dim, cfg.prefilter_iters,
+           args[8])
+    k_ref, k_res = newton.newton_rows(*pre)
+    p_ref, p_res = newton.newton_refs_rows_ref(*pre)
+    solvers = [_locate._row_solver(prep, prep.corners, 1, mesh.dim,
+                                   cfg.prefilter_iters, args[8], plain)
+               for plain in (False, True)]
+    k_kept, p_kept = (_locate._prefilter_rank(pts, cand, s, m)
+                      for s in solvers)
+    torch.cuda.synchronize()
+    both = (k_res < CONV_TOL) & (p_res < CONV_TOL)
+    conv_agree = float(((k_res < CONV_TOL) == (p_res < CONV_TOL))
+                       .double().mean())
+    err = float((k_ref - p_ref)[both].abs().max())
+    # the twin's scores [ROWS, pool], as _prefilter_rank computes them
+    score = torch.where(p_res < CONV_TOL, p_ref.abs().amax(-1),
+                        float("inf")).view(cand.shape[1], -1).T
+
+    def kept_scores(kept):
+        pos = (kept[:, :, None] == cand[:, None, :]).int().argmax(-1)
+        return score.gather(1, pos).sort(dim=1).values
+
+    ks, ps = kept_scores(k_kept), kept_scores(p_kept)
+    fin = torch.isfinite(ps)
+    score_err = float((ks - ps)[fin].abs().max())
+    ranked = score.sort(dim=1).values
+    clear = (ranked[:, m] - ranked[:, m - 1]).nan_to_num(0.0) > 1e-5
+    kept_agree = float((k_kept == p_kept).all(dim=1)[clear].double().mean())
+    ms = cuda_ms(lambda: newton.newton_rows(*pre), 10)
+    plain_ms = cuda_ms(lambda: newton.newton_refs_rows_ref(*pre), 3)
+    emit({"phase": "K1 time", "order_dim": "1/3 prefilter",
+          "rows": int(cand.numel()), "conv_agree": conv_agree,
+          "max_abs_err_converged": err, "kept_clear_rows": float(
+              clear.double().mean()), "kept_agree_clear": kept_agree,
+          "kept_max_score_diff": score_err, "ms": ms, "plain_ms": plain_ms})
+    check(conv_agree >= 0.9999, f"K1 prefilter convergence agreement "
+          f"{conv_agree:.6f} < 0.9999")
+    check(err <= 1e-5, f"K1 prefilter converged refs differ by {err:.3g} "
+          "> 1e-5")
+    check(bool((torch.isfinite(ks) == fin).all()) and score_err <= 1e-5,
+          f"prefilter kept columns score differently ({score_err:.3g})")
+    check(kept_agree >= 0.999, f"prefilter kept columns agree on "
+          f"{kept_agree:.6f} < 0.999 of the untied rows")
+    return {"ms_order1": ms, "plain_ms_order1": plain_ms}
+
+
+def phase_polish(dev, solved):
+    """K4 against its twin: warm starts are the accepted K1 solves of
+    phase 3 (cycled to ROWS rows), one step as the main path runs it; and
+    known refs recovered from the points they map to."""
+    entry = None
+    for i, (mesh, args, k_ref, k_res) in enumerate(solved):
+        order, dim = mesh.order, mesh.dim
+        prep = _locate._mesh_prep(mesh.points, order, dev, want64=True)
+        acc = torch.nonzero((k_res < CONV_TOL)
+                            & (k_ref.abs().amax(-1) < ACCEPT_TOL)).squeeze(1)
+        rows = acc[torch.arange(ROWS, device=dev) % acc.shape[0]]
+        pargs = (args[0][rows].contiguous(), args[1][rows].contiguous(),
+                 k_ref[rows].contiguous(), prep.ctr, prep.inv_scale,
+                 prep.nodes64, order, dim, DF32_CFG.df32_polish_iters)
+        hi, lo, ok = polish.polish_pairs(*pargs)
+        p_hi, p_lo, p_ok = polish.polish_pairs_ref(*pargs)
+        torch.cuda.synchronize()
+        ok_agree = float((ok == p_ok).double().mean())
+        both = ok & p_ok
+        diff = float(((hi.double() + lo.double())
+                      - (p_hi.double() + p_lo.double()))[both].abs().max())
+        # known refs: the points they map to, warm starts 3e-6 off
+        rng = np.random.default_rng(30 + i)
+        refs = torch.as_tensor(rng.uniform(-0.95, 0.95, (ROWS, dim)),
+                               device=dev)
+        ids = torch.as_tensor(rng.integers(0, mesh.nelem, ROWS,
+                                           dtype=np.int32), device=dev)
+        pts = shape.forward_map(
+            order, torch.as_tensor(mesh.points, device=dev)[ids.long()],
+            refs).contiguous()
+        ref0 = (refs + torch.as_tensor(rng.uniform(-3e-6, 3e-6, (ROWS, dim)),
+                                       device=dev)).float().contiguous()
+        t_hi, t_lo, t_ok = polish.polish_pairs(
+            pts, ids, ref0, *pargs[3:])
+        true_err = float((t_hi.double() + t_lo.double() - refs).abs().max())
+        tag = f"{order}/{dim}"
+        rec = {"phase": "K4", "order_dim": tag, "rows": ROWS,
+               "distinct_rows": int(acc.shape[0]), "ok": float(
+                   ok.double().mean()), "ok_agree": ok_agree,
+               "max_abs_diff_vs_twin": diff, "known_refs_max_err": true_err,
+               "known_refs_ok": float(t_ok.double().mean())}
+        if i == 0:
+            rec["ms"] = cuda_ms(lambda: polish.polish_pairs(*pargs), 20)
+            rec["plain_ms"] = cuda_ms(
+                lambda: polish.polish_pairs_ref(*pargs), 3)
+            entry = {"name": "polish_pairs", "route": "cuda",
+                     "source": "multimesh_tpu_torch/csrc/polish_pairs.cu",
+                     "replaces": "multimesh_tpu/search/pallas_df32.py:318",
+                     "max_abs_err": diff, "ms": rec["ms"],
+                     "plain_ms": rec["plain_ms"]}
+        emit(rec)
+        check(ok_agree >= 0.9999, f"K4 {tag} ok agreement {ok_agree:.6f}")
+        check(diff <= 1e-11, f"K4 {tag} hi+lo differ by {diff:.3g}")
+        check(bool(t_ok.all()), f"K4 {tag} known refs not all ok")
+        check(true_err < 1e-10, f"K4 {tag} known refs err {true_err:.3g}")
     return entry
 
 
-def phase_slice(dev, src, pts):
-    """build + apply at the gll configuration, warm and timed."""
-    cfg = LocateConfig(nelem_to_search=20, precision=Precision.MIXED)
-    base = testing.element_nodal_field(src, "smooth")
-    fields = torch.as_tensor(
-        np.stack([base * (1 + 0.1 * i) for i in range(3)]), device=dev)
-    pts_d = torch.as_tensor(pts, device=dev)
+def phase_apply(dev, src, fields):
+    """K5 against its twin: random pair refs in random elements (every
+    16th row element -1), the slice's 3 fields."""
+    rng = np.random.default_rng(40)
+    refs = torch.as_tensor(rng.uniform(-1.0, 1.0, (ROWS, 3)), device=dev)
+    hi = refs.float()
+    lo = (refs - hi.double()).float()
+    el = torch.as_tensor(rng.integers(0, src.nelem, ROWS, dtype=np.int32),
+                         device=dev)
+    el[::16] = -1
+    args = (hi, lo, el, fields, src.order, 3)
+    got = polish.apply_pairs(*args)
+    want = polish.apply_pairs_ref(*args)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-300))[
+        el >= 0].max())
+    zeros = bool((got[el < 0] == 0).all())
+    ms = cuda_ms(lambda: polish.apply_pairs(*args), 20)
+    plain_ms = cuda_ms(lambda: polish.apply_pairs_ref(*args), 3)
+    emit({"phase": "K5", "rows": ROWS, "params": 3, "order_dim": "4/3",
+          "max_rel_diff": rel, "missing_rows_zero": zeros, "ms": ms,
+          "plain_ms": plain_ms})
+    check(rel <= 1e-12, f"K5 values differ by {rel:.3g} relative")
+    check(zeros, "K5 element -1 did not give 0")
+    return {"name": "apply_pairs", "route": "cuda",
+            "source": "multimesh_tpu_torch/csrc/apply_pairs.cu",
+            "replaces": "multimesh_tpu/search/pallas_df32.py:407",
+            "max_abs_err": float((got - want).abs().max()), "ms": ms,
+            "plain_ms": plain_ms}
 
+
+def run_scan(src, targets, dev):
+    """The first N_SCAN ``targets`` through ``strategy="scan"`` with the
+    flagship options (the polish runs on the ladder only, so it is left
+    out here)."""
+    return _locate.locate(
+        targets[:N_SCAN], src.points, src.order,
+        dataclasses.replace(FLAGSHIP_CFG, df32_polish=False),
+        strategy="scan", device=dev, want_weights=False, **FLAGSHIP_KW)
+
+
+def run_transfer(src, targets, fields, cfg, dev, plain=False, **kw):
+    """build + apply, synchronised: (op, vals, build_s, apply_s)."""
+    t0 = time.perf_counter()
+    op = TransferOperator.build(src.points, targets, order=src.order,
+                                cfg=cfg, device=dev, plain=plain, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vals = op.apply(fields)
+    torch.cuda.synchronize()
+    return op, vals, t1 - t0, time.perf_counter() - t1
+
+
+def phase_slice(dev, src, pts_d, fields, truth):
+    """build + apply at the gll configuration, warm and timed."""
     def run(targets, plain=False):
-        t0 = time.perf_counter()
-        op = TransferOperator.build(src.points, targets, order=4, cfg=cfg,
-                                    fallback="snap", device=dev,
-                                    plain=plain)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        vals = op.apply(fields)
-        torch.cuda.synchronize()
-        return op, vals, t1 - t0, time.perf_counter() - t1
+        return run_transfer(src, targets, fields, SLICE_CFG, dev, plain,
+                            fallback="snap")
 
     run(pts_d)  # warm-up: mesh prep cache, allocator, lazy module loads
-    newton.newton_rows.launches = 0
-    nearest.nearest.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     op, vals, build_s, apply_s = run(pts_d)
     wall = time.perf_counter() - t0
-    launches = {"newton_rows": newton.newton_rows.launches,
-                "nearest_centroid": nearest.nearest.launches}
+    counts = read_launches()
+    launches = {k: counts[k] for k in ("newton_rows", "nearest_centroid")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path was not launched: {launches}")
     check(tuple(vals.shape) == (N_TARGETS, 3), f"shape {tuple(vals.shape)}")
     check(bool(torch.isfinite(vals).all()), "non-finite values")
     check(bool(op.found.all()), "snap left a target unassigned")
-    truth = torch.as_tensor(testing.smooth_field(pts), device=dev)
-    rel = float(((vals[:, 0].double() - truth).abs() / truth.abs()).max())
+    rel = max_rel(vals[:, 0], truth)
     check(rel < 1e-6, f"max rel err {rel:.3g} >= 1e-6")
 
     # the first chunk through the plain twins, on the card
@@ -268,10 +478,195 @@ def phase_slice(dev, src, pts):
           "n_retry": op.n_retry, "launches": launches,
           "max_rel_err": rel, "peak_mem_gb": peak_gb,
           "plain_elements_agree": agree, "plain_max_rel_diff": vdiff})
+
+
+def phase_df32_slice(dev, src, pts_d, fields, truth):
+    """The slice with the df32 polish (K1, K2, K4, K5), warm and timed;
+    its first chunk through the plain twins; then f64_polish once."""
+    def run(targets, cfg=DF32_CFG, plain=False):
+        return run_transfer(src, targets, fields, cfg, dev, plain,
+                            fallback="snap")
+
+    run(pts_d)  # warm-up: the prep with the f64 lattice, allocator
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    op, vals, build_s, apply_s = run(pts_d)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(launches[k] > 0 for k in ("newton_rows", "nearest_centroid",
+                                        "polish_pairs", "apply_pairs")),
+          f"a kernel of the df32 path was not launched: {launches}")
+    check(op.refs_lo is not None, "the df32 polish did not run")
+    check(vals.dtype == torch.float64 and tuple(vals.shape) == (N_TARGETS, 3),
+          f"values {vals.dtype} {tuple(vals.shape)}")
+    check(bool(torch.isfinite(vals).all()), "non-finite values")
+    rel = max_rel(vals[:, 0], truth)
+    polished = float((op.refs_lo != 0).any(dim=-1).double().mean())
+
+    # the first chunk through the plain twins, on the card
+    p_op, _, _, _ = run(pts_d[:ROWS], plain=True)
+    p_vals = polish.apply_pairs_ref(p_op.refs, p_op.refs_lo, p_op.elements,
+                                    fields, src.order, 3)
+    same = op.elements[:ROWS] == p_op.elements
+    agree = float(same.double().mean())
+    vdiff = float(((vals[:ROWS] - p_vals).abs() / p_vals.abs())[same].max())
+
+    t0 = time.perf_counter()
+    f_op, f_vals, f_build, f_apply = run(
+        pts_d, cfg=dataclasses.replace(SLICE_CFG, f64_polish=True))
+    f_wall = time.perf_counter() - t0
+    f_rel = max_rel(f_vals[:, 0], truth)
+    emit({"phase": "df32 slice", "targets": N_TARGETS,
+          "elements": src.nelem, "params": 3, "wall_s": wall,
+          "build_s": build_s, "apply_s": apply_s,
+          "mpts_per_s": N_TARGETS / wall / 1e6, "n_retry": op.n_retry,
+          "launches": launches, "max_rel_err": rel,
+          "rows_with_lo": polished, "peak_mem_gb": peak_gb,
+          "plain_elements_agree": agree, "plain_max_rel_diff": vdiff,
+          "f64_polish": {"wall_s": f_wall, "build_s": f_build,
+                         "apply_s": f_apply, "max_rel_err": f_rel,
+                         "refs_dtype": str(f_op.refs.dtype)}})
+    check(rel < 1e-8, f"df32 max rel err {rel:.3g} >= 1e-8")
+    check(agree >= 0.999, f"df32 plain path elements agree {agree:.6f}")
+    check(vdiff <= 1e-10, f"df32 plain path values differ by {vdiff:.3g}")
+    check(f_op.refs.dtype == torch.float64, "f64_polish refs not f64")
+    check(f_rel < 1e-8, f"f64_polish max rel err {f_rel:.3g} >= 1e-8")
     return launches
 
 
+def lifted_targets(pts):
+    """The targets with 2% of them lifted radially to 6.371-6.40e6 m, just
+    above the source's outer surface (the overhang of a target mesh with
+    another surface): (targets, lifted mask)."""
+    rng = np.random.default_rng(50)
+    targets = pts.copy()
+    lifted = rng.random(N_TARGETS) < 0.02
+    radius = np.linalg.norm(targets[lifted], axis=1)
+    targets[lifted] *= (rng.uniform(6.371e6, 6.40e6, int(lifted.sum()))
+                        / radius)[:, None]
+    return targets, lifted
+
+
+def phase_flagship(dev, src, pts, fields):
+    """gll_2_gll's locate options on the 10M targets, 2% of them lifted
+    (``lifted_targets``); then 1M of them through the scan and its
+    trilinear prefilter."""
+    targets, lifted = lifted_targets(pts)
+    tgt_d = torch.as_tensor(targets, device=dev)
+    interior = torch.as_tensor(~lifted, device=dev)
+    cfg, kw = FLAGSHIP_CFG, FLAGSHIP_KW
+
+    # what TransferOperator.build runs, kept whole for its accepted mask
+    reset_launches()
+    t0 = time.perf_counter()
+    res = _locate.locate(tgt_d, src.points, src.order, cfg, device=dev,
+                         want_weights=False, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    op = TransferOperator(res.elements, src.order, res.refs, res.found,
+                          n_retry=res.n_retry, refs_lo=res.refs_lo)
+    vals = op.apply(fields)
+    torch.cuda.synchronize()
+    build_s, apply_s = t1 - t0, time.perf_counter() - t1
+    launches = read_launches()
+    truth = torch.as_tensor(testing.smooth_field(targets), device=dev)
+    acc_int = res.accepted & interior
+    acc_share = float(acc_int.sum()) / float(interior.sum())
+    rel = max_rel(vals[acc_int, 0], truth[acc_int])
+
+    # the lifted rows (where the retry runs) through the plain path
+    rows = torch.nonzero(~interior).squeeze(1)
+    p_res = _locate.locate(tgt_d[rows], src.points, src.order, cfg,
+                           device=dev, plain=True, want_weights=False, **kw)
+    agree = float((p_res.elements == res.elements[rows]).double().mean())
+
+    # 1M of the targets through strategy="scan"
+    reset_launches()
+    t0 = time.perf_counter()
+    s_res = run_scan(src, tgt_d, dev)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    scan_launches = read_launches()
+    s_int = interior[:N_SCAN]
+    s_agree = float((s_res.elements == res.elements[:N_SCAN])[s_int]
+                    .double().mean())
+    emit({"phase": "flagship", "targets": N_TARGETS,
+          "lifted": int(lifted.sum()), "build_s": build_s,
+          "apply_s": apply_s, "n_retry": op.n_retry, "launches": launches,
+          "interior_accepted": acc_share, "accepted_max_rel_err": rel,
+          "lifted_accepted": float(res.accepted[rows].double().mean()),
+          "plain_elements_agree_lifted": agree,
+          "scan": {"targets": N_SCAN, "wall_s": scan_s,
+                   "launches": scan_launches,
+                   "interior_elements_agree_ladder": s_agree}})
+    check(op.n_retry > 0, "the flagship run retried no row")
+    check(all(launches[k] > 0 for k in ("newton_rows", "nearest_centroid",
+                                        "polish_pairs", "apply_pairs")),
+          f"a kernel of the flagship path was not launched: {launches}")
+    check(acc_share >= 0.9999, f"interior accepted {acc_share:.6f}")
+    check(rel < 1e-8, f"accepted interior max rel err {rel:.3g} >= 1e-8")
+    check(agree >= 0.999, f"lifted rows vs plain path agree {agree:.6f}")
+    check(scan_launches["newton_rows_order1"] > 0,
+          "the scan's prefilter launched no order-1 K1")
+    check(s_agree >= 0.999, f"scan vs ladder interior agree {s_agree:.6f}")
+    return scan_launches["newton_rows_order1"]
+
+
+def profile(dev, src, pts_d, fields, targets):
+    """``--profile``: per run of the time breakdown in PERF.md, one
+    warm-up, three timed warm walls and one run under ``torch.profiler``;
+    one JSON line each with the walls, the device time of all kernels of
+    the profiled run, the busy share (that device time over the mean warm
+    wall) and the eight kernels with the most device time (name, ms,
+    launches)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    tgt_d = torch.as_tensor(targets, device=dev)
+
+    def transfer(t, cfg, **kw):
+        return lambda: run_transfer(src, t, fields, cfg, dev, **kw)
+
+    runs = {
+        "slice": transfer(pts_d, SLICE_CFG, fallback="snap"),
+        "df32 slice": transfer(pts_d, DF32_CFG, fallback="snap"),
+        "f64_polish slice": transfer(
+            pts_d, dataclasses.replace(SLICE_CFG, f64_polish=True),
+            fallback="snap"),
+        "flagship options": transfer(tgt_d, FLAGSHIP_CFG, **FLAGSHIP_KW),
+        "scan, 1M targets": lambda: run_scan(src, tgt_d, dev),
+    }
+    for name, fn in runs.items():
+        walls = []
+        for _ in range(4):  # the first warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        walls = walls[1:]
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        emit({"profile": name, "walls_s": walls, "device_ms": device_ms,
+              "busy": device_ms / (1e3 * sum(walls) / len(walls)),
+              "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                      for e in top]})
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--profile", action="store_true",
+        help="time and profile the slice runs instead of the smoke phases")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -283,16 +678,31 @@ def main():
 
     src = testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=4)
     pts = testing.shell_targets(N_TARGETS, seed=0)
+    base = testing.element_nodal_field(src, "smooth")
+    fields = torch.as_tensor(
+        np.stack([base * (1 + 0.1 * i) for i in range(3)]), device=dev)
+    pts_d = torch.as_tensor(pts, device=dev)
+    if args.profile:
+        profile(dev, src, pts_d, fields, lifted_targets(pts)[0])
+        return 0
     centroids = torch.as_tensor(src.points.mean(axis=1), device=dev)
-    k2 = phase_nearest(dev, centroids, torch.as_tensor(pts[:ROWS],
-                                                       device=dev))
-    k1 = phase_newton(dev, src, pts[:ROWS])
-    launches = phase_slice(dev, src, pts)
+    truth = torch.as_tensor(testing.smooth_field(pts), device=dev)
+    k2 = phase_nearest(dev, centroids, pts_d[:ROWS])
+    k1, solved = phase_newton(dev, src, pts[:ROWS])
+    k4 = phase_polish(dev, solved)
+    del solved
+    k5 = phase_apply(dev, src, fields)
+    phase_slice(dev, src, pts_d, fields, truth)
+    launches = phase_df32_slice(dev, src, pts_d, fields, truth)
+    order1 = phase_flagship(dev, src, pts, fields)
 
-    k1["launches"] = launches["newton_rows"]
-    k2["launches"] = launches["nearest_centroid"]
+    # launches of the df32 slice's run; K1's order-1 ones of the scan's
+    for entry, name in ((k1, "newton_rows"), (k2, "nearest_centroid"),
+                        (k4, "polish_pairs"), (k5, "apply_pairs")):
+        entry["launches"] = launches[name]
+    k1["launches_order1"] = order1
     print(smi, flush=True)
-    emit({"kernels": [k1, k2]})
+    emit({"kernels": [k1, k2, k4, k5]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` file exposes a plain C entry point (pointers, sizes
 and the CUDA stream as arguments, the launch's ``cudaError_t`` as the
 return value), so one ``nvcc`` call compiles all of them into a single
-shared library in seconds -- no PyTorch headers are involved.  The
+shared library in seconds -- no PyTorch headers are involved; the
+``csrc/*.cuh`` headers they include are shared device code.  The
 library lands in ``_build/`` next to this file, named by a hash of the
-sources and flags: an edit to any kernel rebuilds it on first use, and
-an unchanged tree reuses it.
+sources, headers and flags: an edit to any of them rebuilds it on first
+use, and an unchanged tree reuses it.
 
 Nothing here falls back: a missing ``nvcc`` or a failed compile raises.
 """
@@ -39,6 +40,13 @@ _SIGNATURES = {
                         _F32, _P, _P, _P),
     # queries, centroids, C, E, dim, out, stream
     "mmt_nearest_centroid": (_P, _P, _I64, _I64, _I32, _P, _P),
+    # points, ids, ref0, ctr, inv_scale, nodes64, M, E, order, dim, iters,
+    # ref_hi, ref_lo, ok, stream
+    "mmt_polish_pairs": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                         _I32, _P, _P, _P, _P),
+    # ref_hi, ref_lo, elements, fields, M, E, F, order, dim, out, stream
+    "mmt_apply_pairs": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P,
+                        _P),
 }
 
 _library = None
@@ -64,7 +72,7 @@ def nvcc() -> str:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SOURCE_DIR.glob("*.cu")):
+    for src in sorted([*SOURCE_DIR.glob("*.cu"), *SOURCE_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmmt_kernels_{h.hexdigest()[:16]}.so"

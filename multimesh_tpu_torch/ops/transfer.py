@@ -7,11 +7,15 @@ Counterpart of the JAX package's ``ops/transfer.py``:
     op.save(dir); TransferOperator.load(dir)
 
 The on-disk format is the JAX package's (elements.npy, refs.npy,
-found.npy, meta.npy = uint64 [order, fingerprint], optional recon.npy,
-or the dense coeffs.npy), so an operator saved by either package loads
-in the other; ``from_numpy`` takes the JAX operator's state as numpy
-arrays.  The operator's tensors live on one device, the one ``build``,
-``from_numpy`` or ``load`` was given.
+found.npy, meta.npy = uint64 [order, fingerprint], optional refs_lo.npy
+and recon.npy, or the dense coeffs.npy), so an operator saved by either
+package loads in the other; ``from_numpy`` takes the JAX operator's
+state as numpy arrays.  The operator's tensors live on one device, the
+one ``build``, ``from_numpy`` or ``load`` was given.
+
+An operator built with ``LocateConfig(df32_polish=True)`` carries
+``refs_lo``: ``refs + refs_lo`` is its pair-precision ref, and ``apply``
+interpolates there in f64 through K5 (``search.polish.apply_pairs``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from ..config import DEFAULT_LOCATE, LocateConfig
 from ..core import gll
+from ..search import polish as _polish
 from ..search.locate import locate as _locate
 
 PathLike = Union[str, pathlib.Path]
@@ -57,6 +62,7 @@ class TransferOperator:
     recon:    optional [M] reconstruction indices when the operator was
               built on deduplicated unique points (apply expands back)
     n_retry:  rows ``build`` re-ran through the scan retry
+    refs_lo:  optional [N, d] f32 pair residuals of f32 refs (df32 polish)
     """
 
     elements: torch.Tensor
@@ -66,6 +72,7 @@ class TransferOperator:
     recon: torch.Tensor | None = None
     _weights: torch.Tensor | None = None  # explicit weights (dense caches)
     n_retry: int = 0
+    refs_lo: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -74,10 +81,14 @@ class TransferOperator:
     @property
     def weights(self) -> torch.Tensor:
         """[N, (p+1)^d] weights, materialized from the refs unless the
-        operator carries explicit ones."""
+        operator carries explicit ones; with ``refs_lo`` from the f64 sum
+        of the pair, so a dense save keeps the pair's precision."""
         if self._weights is not None:
             return self._weights
-        w = gll.tensor_basis(self.order, self.refs)
+        refs = self.refs
+        if self.refs_lo is not None:
+            refs = refs.to(torch.float64) + self.refs_lo.to(torch.float64)
+        w = gll.tensor_basis(self.order, refs)
         if self.found is not None:
             w = torch.where(self.found[:, None], w, 0.0)
         return w
@@ -86,8 +97,8 @@ class TransferOperator:
     def build(cls, source_points, target_points, order: int,
               cfg: LocateConfig = DEFAULT_LOCATE, *,
               fallback: str = "sentinel", use_aabb: bool = False,
-              prefilter_m: int = 0, recon=None, device="cuda",
-              plain: bool = False) -> "TransferOperator":
+              prefilter_m: int = 0, recon=None,
+              device="cuda", plain: bool = False) -> "TransferOperator":
         """Locate ``target_points`` [N, d] in the source mesh
         ``source_points`` [E, (p+1)^d, d] on ``device`` (see
         ``search.locate.locate``; ``plain`` runs the kernels' plain
@@ -101,14 +112,15 @@ class TransferOperator:
             found=res.found,
             recon=None if recon is None else torch.as_tensor(
                 recon, device=res.elements.device),
-            n_retry=res.n_retry,
+            n_retry=res.n_retry, refs_lo=res.refs_lo,
         )
 
     @classmethod
     def from_numpy(cls, elements, refs, found, order: int, recon=None,
-                   device="cuda") -> "TransferOperator":
+                   refs_lo=None, device="cuda") -> "TransferOperator":
         """The JAX package's operator state (numpy arrays) as an operator
-        on ``device``; refs keep their dtype, which sets apply's."""
+        on ``device``; refs keep their dtype, which sets apply's unless
+        ``refs_lo`` (the df32 pair residuals) is given."""
         def dev(a, dtype=None):
             return torch.tensor(np.asarray(a, dtype=dtype), device=device)
 
@@ -118,6 +130,7 @@ class TransferOperator:
             found=(dev(elements, np.int32) >= 0 if found is None
                    else dev(found, bool)),
             recon=None if recon is None else dev(recon),
+            refs_lo=None if refs_lo is None else dev(refs_lo, np.float32),
         )
 
     @property
@@ -134,10 +147,12 @@ class TransferOperator:
 
         The gather runs in the dtype of the refs (or of explicit weights)
         -- f32 for the operator ``build`` makes -- chunked over points to
-        bound the [F, chunk, n] gather buffer.  With ``recon`` and
-        ``expand`` the result is expanded back to the original
-        (duplicated) point order.  The result is on the operator's
-        device."""
+        bound the [F, chunk, n] gather buffer.  With ``refs_lo`` it runs
+        in f64 at the pair refs through ``search.polish.apply_pairs``
+        (K5 on the card), as the JAX package's ``_apply_df32``.  With
+        ``recon`` and ``expand`` the result is expanded back to the
+        original (duplicated) point order.  The result is on the
+        operator's device."""
         fields = torch.as_tensor(fields, device=self.device)
         single = fields.dim() == 2
         if single:
@@ -149,6 +164,17 @@ class TransferOperator:
             outs = [
                 _apply_weights(self.elements[s:s + chunk],
                                weights[s:s + chunk], fields)
+                for s in range(0, N, chunk)
+            ]
+        elif self.refs_lo is not None:
+            fields = fields.to(torch.float64).contiguous()
+            refs = self.refs.to(torch.float32)
+            d = refs.shape[1]
+            outs = [
+                _polish.apply_pairs(refs[s:s + chunk],
+                                    self.refs_lo[s:s + chunk],
+                                    self.elements[s:s + chunk], fields,
+                                    self.order, d)
                 for s in range(0, N, chunk)
             ]
         else:
@@ -175,8 +201,8 @@ class TransferOperator:
     def save(self, directory: PathLike, fingerprint: int | None = None,
              dense: bool = False):
         """Persist the operator in the JAX package's format: compact
-        (elements, refs, found) by default, the dense elements.npy /
-        coeffs.npy pair with ``dense``; ``fingerprint`` (see
+        (elements, refs, found, refs_lo if set) by default, the dense
+        elements.npy / coeffs.npy pair with ``dense``; ``fingerprint`` (see
         ``hashing.content_fingerprint``) goes to meta.npy so ``load`` can
         refuse a cache built from other geometry."""
         directory = str(directory)
@@ -191,6 +217,8 @@ class TransferOperator:
             save("refs.npy", self.refs)
             save("found.npy", self.found if self.found is not None
                  else np.ones((self.n_points,), bool))
+            if self.refs_lo is not None:
+                save("refs_lo.npy", self.refs_lo)
         else:
             save("coeffs.npy", self.weights)
         save("meta.npy", np.array(
@@ -211,10 +239,6 @@ class TransferOperator:
         def path(name):
             return os.path.join(directory, name)
 
-        if os.path.exists(path("refs_lo.npy")):
-            raise NotImplementedError(
-                f"operator at {directory} carries df32 refs_lo; the "
-                f"compensated apply is not ported yet (ROADMAP A7)")
         elements = np.load(path("elements.npy")).astype(np.int32)
         compact = os.path.exists(path("refs.npy"))
         if compact:
@@ -223,6 +247,8 @@ class TransferOperator:
                 raise ValueError(
                     f"stored refs at {directory} contain non-finite values")
             found = np.load(path("found.npy"))
+            refs_lo = (np.load(path("refs_lo.npy"))
+                       if os.path.exists(path("refs_lo.npy")) else None)
         else:
             weights = np.load(path("coeffs.npy"))
             if np.isnan(weights).any():
@@ -247,7 +273,7 @@ class TransferOperator:
                  if os.path.exists(path("recon.npy")) else None)
         if compact:
             return cls.from_numpy(elements, refs, found, order, recon=recon,
-                                  device=device)
+                                  refs_lo=refs_lo, device=device)
         return cls(
             elements=torch.as_tensor(elements, device=device), order=order,
             recon=None if recon is None else torch.as_tensor(

@@ -1,8 +1,9 @@
-"""Point location: candidates -> Newton ladder -> accept -> fallbacks.
+"""Point location: candidates -> Newton -> accept -> fallbacks -> polish.
 
-Counterpart of the JAX package's ``search/locate.py`` for the main path, the
-escalation ladder of the JAX package's TPU engine, on sources of at most
-16,384 elements:
+Counterpart of the JAX package's ``search/locate.py`` on sources of at
+most 16,384 elements, along the routes of its TPU engine.
+
+``strategy="ladder"`` (and "auto"), the escalation ladder:
 
 1. round 1: every point's nearest centroid (K2, ``search.nearest``) and
    one Newton solve on it (K1, ``search.newton``);
@@ -10,32 +11,47 @@ escalation ladder of the JAX package's TPU engine, on sources of at most
    their top-8 nearest centroids;
 3. round 4: an exact kNN with ``nelem_to_search`` candidates for the last
    C/128 failures;
-4. the sentinel / snap / best fallbacks;
-5. a scan retry (K1 once per candidate column) for unaccepted rows that
-   never reached round 4.
+4. the sentinel / snap / best / fixed_ref fallbacks;
+5. a scan retry (K1 once per candidate column) of the unaccepted rows
+   that never reached round 4 -- under ``fixed_ref`` of every unaccepted
+   row, since its fallback needs the scan's per-candidate AABB and
+   nearest-centre state;
+6. on request, a polish of the accepted rows: ``LocateConfig.f64_polish``
+   (two f64 Newton steps in plain torch, f64 refs) or ``df32_polish``
+   (K4, ``search.polish``; the refs become an (f32, f32) pair that the
+   transfer operator applies through K5).
+
+``strategy="scan"``: exact kNN candidates, ranked down to ``prefilter_m``
+by the trilinear prefilter (K1 at order 1 on the element corners, the
+JAX package's order-1 use of K3) and scanned in distance order; the rows
+that the prefiltered list fails to accept are scanned again with the
+full list.  The ladder accepts ``prefilter_m`` and ignores it, as the
+JAX package does.
 
 Accept semantics are the reference's first-accept-in-distance-order and
-best-so-far (reference multi_mesh/components/interpolator.py:1147-1255).
+best-so-far (reference multi_mesh/components/interpolator.py:1147-1255);
+``use_aabb`` also requires the point inside the candidate's bounding box.
 Sources of at most 64 elements take exact top-k candidates with
 K = min(8, E) columns through the same rounds instead.
 
-Outside this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the grid route for E > 16,384 (A6); ``fixed_ref``,
-``use_aabb`` and the trilinear prefilter (A4); the f64 / df32 polish and
-``Precision.F64`` (A7).
+Outside this slice (each raises ``NotImplementedError``): the grid route
+for E > 16,384 (ROADMAP A6) and ``Precision.F64``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
-from ..config import DEFAULT_LOCATE, LocateConfig, Precision
-from ..core import gll
+from ..config import (DEFAULT_LOCATE, FALLBACK_REF_COORD, LocateConfig,
+                      Precision)
+from ..core import gll, shape
 from ..hashing import content_fingerprint
 from . import knn as _knn
 from . import newton as _newton
+from . import polish as _polish
 
 # residual threshold (unit-element frame) separating converged f32 Newton
 # solves (~1e-6 plateau) from diverged/exterior junk
@@ -45,20 +61,35 @@ _F32_CONV_TOL = 1e-4
 GRID_MIN_SOURCES = 16_384
 # above this many sources round 1 takes the single nearest centroid
 _NEAR1_MIN_SOURCES = 64
-_FALLBACKS = ("sentinel", "snap", "best")
+_FALLBACKS = ("sentinel", "snap", "best", "fixed_ref")
+_STRATEGIES = ("auto", "ladder", "scan")
+# f64 Newton steps of f64_polish: quadratic convergence takes the ~1e-7
+# f32 refs below 1e-12 in two (the JAX package's locate.py:697-700)
+_F64_POLISH_ITERS = 2
+# AABB test slack relative to the element's extent, for f64 points (the
+# JAX package's f64 branch, locate.py:445-453): face points must never be
+# excluded by rounding
+_AABB_RTOL = 1e-9
 
 
 @dataclasses.dataclass
 class LocateResult:
-    """elements [N] int32 (-1 = not found), refs [N, d] f32, weights
-    [N, (p+1)^d] f32 ([N, 0] without ``want_weights``), found [N] bool
-    (True also for snapped / fallback assignments); all on the device of
-    the call.  ``n_retry`` counts the rows the scan retry re-ran."""
+    """elements [N] int32 (-1 = not found), refs [N, d] f32 (f64 after
+    ``f64_polish``), weights [N, (p+1)^d] in the refs' dtype ([N, 0]
+    without ``want_weights``), found [N] bool (True also for snapped /
+    fallback assignments), accepted [N] bool (a candidate passed the
+    accept test, in the ladder, the scan or a retry); all on the device
+    of the call.  After ``df32_polish``, ``refs + refs_lo`` ([N, d] f32
+    each) is the pair-precision ref, with ``refs_lo`` zero on rows the
+    polish left alone.  ``n_retry`` counts the rows the scan retry
+    re-ran."""
 
     elements: torch.Tensor
     refs: torch.Tensor
     weights: torch.Tensor
     found: torch.Tensor
+    accepted: torch.Tensor
+    refs_lo: torch.Tensor | None = None
     n_retry: int = 0
 
 
@@ -72,16 +103,20 @@ class _Prep:
     ctr: torch.Tensor  # [E, d] f64 AABB centres
     inv_scale: torch.Tensor  # [E] f64, 1 / (half the largest extent)
     nodes: torch.Tensor  # [E, n*d] f32 unit-frame lattice
+    corners: torch.Tensor  # [E, 2^d*d] f32 unit-frame corner nodes
+    nodes64: torch.Tensor | None  # [E, n*d] f64 lattice, for a polish
 
 
 _PREP_CACHE: dict = {}
 
 
-def _mesh_prep(elem_nodes: np.ndarray, order: int, device) -> _Prep:
+def _mesh_prep(elem_nodes: np.ndarray, order: int, device,
+               want64: bool = False) -> _Prep:
     """Per-element geometry, computed in f64 on the host and cached by
     content fingerprint (a transfer makes many locate calls against one
-    mesh)."""
-    key = (content_fingerprint(elem_nodes), order, str(device))
+    mesh).  ``want64`` also keeps the f64 unit-frame lattice on the
+    device, which only the polish reads (12 MB at E = 4,096, order 4)."""
+    key = (content_fingerprint(elem_nodes), order, str(device), want64)
     prep = _PREP_CACHE.get(key)
     if prep is None:
         if len(_PREP_CACHE) > 8:
@@ -92,6 +127,7 @@ def _mesh_prep(elem_nodes: np.ndarray, order: int, device) -> _Prep:
         centers = 0.5 * (lo + hi)
         scales = np.maximum(0.5 * (hi - lo).max(axis=-1), 1e-30)
         nodes_c = (elem_nodes - centers[:, None, :]) / scales[:, None, None]
+        corners = nodes_c[:, gll.corner_indices(order, d)]
 
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=device)
@@ -100,34 +136,64 @@ def _mesh_prep(elem_nodes: np.ndarray, order: int, device) -> _Prep:
             lo=dev(lo), hi=dev(hi), centroids=dev(elem_nodes.mean(axis=1)),
             ctr=dev(centers), inv_scale=dev(1.0 / scales),
             nodes=dev(nodes_c.astype(np.float32).reshape(E, n * d)),
+            corners=dev(corners.astype(np.float32).reshape(E, -1)),
+            nodes64=dev(nodes_c.reshape(E, n * d)) if want64 else None,
         )
         _PREP_CACHE[key] = prep
     return prep
 
 
-def _row_solver(prep: _Prep, order: int, d: int, cfg: LocateConfig,
-                plain: bool):
-    """solve(points [M, d] f64, ids [M] int32) -> (refs f32, res f32)
-    through K1, or through its plain twin with ``plain``."""
+def _row_solver(prep: _Prep, nodes, order: int, d: int, iters: int,
+                clamp: float, plain: bool):
+    """solve(points [M, d] f64, ids [M] int32) -> (refs f32, res f32):
+    ``iters`` Newton steps on the unit-frame lattice ``nodes`` (the
+    elements', or their corners' at order 1) through K1, or through its
+    plain twin with ``plain``."""
     fn = _newton.newton_refs_rows_ref if plain else _newton.newton_rows
-    iters = cfg.newton_iters + cfg.polish_iters
 
     def solve(points, ids):
         return fn(points.contiguous(), ids.contiguous(), prep.ctr,
-                  prep.inv_scale, prep.nodes, order, d, iters,
-                  cfg.newton_clamp)
+                  prep.inv_scale, nodes, order, d, iters, clamp)
 
     return solve
 
 
+def _make_eval(solve, prep: _Prep, cfg: LocateConfig, use_aabb: bool):
+    """evaluate(points, ids) -> (ref, conv, maxabs, inside, accepted) for
+    (point, element) rows; ``inside`` (the point in the element's AABB)
+    is None without ``use_aabb``."""
+
+    def evaluate(points, ids):
+        ref, res = solve(points, ids)
+        conv = res < _F32_CONV_TOL
+        maxabs = ref.abs().amax(dim=-1)
+        accepted = conv & (maxabs < cfg.accept_tol)
+        inside = None
+        if use_aabb:
+            lo, hi = prep.lo[ids.long()], prep.hi[ids.long()]
+            eps = _AABB_RTOL * (hi - lo)
+            inside = ((points >= lo - eps) & (points <= hi + eps)).all(dim=-1)
+            accepted &= inside
+        return ref, conv, maxabs, inside, accepted
+
+    return evaluate
+
+
+def _fixed_ref(n: int, d: int, device) -> torch.Tensor:
+    """[n, d] copies of the reference's fixed interior ref coordinate."""
+    return torch.tensor(FALLBACK_REF_COORD[:d], dtype=torch.float32,
+                        device=device).expand(n, d)
+
+
 def _assemble(fallback, cfg, acc, acc_elem, acc_ref, best_max, best_ref,
-              best_elem):
+              best_elem, fb=None):
     """(elements, refs, found) under the fallback's failure semantics:
     sentinel -1 and zero refs (reference get_element_weights with
     snap_to_nearest=False, interpolator.py:1231-1233); snap to the best
     candidate with refs clipped to +/- snap_clip (interpolator.py:
     1217-1230); best-so-far unclipped if below fallback_max
-    (trilinearinterpolator.c:113-137)."""
+    (trilinearinterpolator.c:113-137); fixed_ref takes ``fb`` = (element,
+    ref) of the reference's fallback choice (interpolator.py:1448-1473)."""
     if fallback == "sentinel":
         return (torch.where(acc, acc_elem, -1),
                 torch.where(acc[:, None], acc_ref, 0.0), acc)
@@ -136,6 +202,11 @@ def _assemble(fallback, cfg, acc, acc_elem, acc_ref, best_max, best_ref,
         return (torch.where(acc, acc_elem, best_elem),
                 torch.where(acc[:, None], acc_ref, snapped),
                 torch.ones_like(acc))
+    if fallback == "fixed_ref":
+        fb_elem, fb_ref = fb
+        return (torch.where(acc, acc_elem, fb_elem),
+                torch.where(acc[:, None], acc_ref, fb_ref),
+                torch.ones_like(acc))
     ok = best_max < cfg.fallback_max
     return (torch.where(acc, acc_elem, torch.where(ok, best_elem, -1)),
             torch.where(acc[:, None], acc_ref,
@@ -143,7 +214,7 @@ def _assemble(fallback, cfg, acc, acc_elem, acc_ref, best_max, best_ref,
             acc | ok)
 
 
-def _ladder_chunk(points, cand, solve, cfg, fallback, C, bucket_cands,
+def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, bucket_cands,
                   centroids, k_full):
     """The escalation ladder over one chunk.
 
@@ -151,17 +222,14 @@ def _ladder_chunk(points, cand, solve, cfg, fallback, C, bucket_cands,
     failures take ``bucket_cands(points) -> [B, 8]`` in rounds 2-3).
     ``C`` is the chunk's power-of-two row bucket: the rescue bucket sizes
     derive from it exactly as in the JAX package, so both evaluate the
-    same rows in every round.  Returns (elements, refs, found,
+    same rows in every round.  Returns (elements, refs, found, accepted,
     needs_retry)."""
     n, d = points.shape
     K = cand.shape[1]
     inf = float("inf")
 
     def eval_rows(pts, ids):
-        ref, res = solve(pts, ids)
-        conv = res < _F32_CONV_TOL
-        maxabs = ref.abs().amax(dim=-1)
-        accepted = conv & (maxabs < cfg.accept_tol)
+        ref, conv, maxabs, _, accepted = evaluate(pts, ids)
         return ref, accepted, torch.where(conv, maxabs, inf)
 
     # ---- round 1: nearest candidate, all points -----------------------
@@ -237,87 +305,132 @@ def _ladder_chunk(points, cand, solve, cfg, fallback, C, bucket_cands,
     full_op = torch.zeros((n,), dtype=torch.bool, device=points.device)
     full_op[idx] = True
 
-    elements, refs, found = _assemble(fallback, cfg, acc, elem, ref,
-                                      best_max, best_ref, best_elem)
-    return elements, refs, found, ~acc & ~full_op
+    # under fixed_ref every unaccepted row takes the scan retry, so these
+    # placeholders never reach the caller
+    elements, refs, found = _assemble(
+        fallback, cfg, acc, elem, ref, best_max, best_ref, best_elem,
+        fb=(best_elem, _fixed_ref(n, d, points.device)))
+    needs_retry = ~acc if fallback == "fixed_ref" else ~acc & ~full_op
+    return elements, refs, found, acc, needs_retry
 
 
-def _scan_candidates(points, cand, solve, cfg, fallback):
+def _scan_candidates(points, cand, evaluate, cfg, fallback, prep):
     """Exhaustive scan of all K candidate columns in distance order,
-    carrying first-accepted and best-so-far state per point (the JAX
-    package's _scan_candidates + _locate_chunk without the AABB and
-    prefilter state of A4).  Returns (elements, refs, found)."""
+    carrying first-accepted and best-so-far state per point and, for
+    ``fixed_ref``, the reference's fallback choice: the first candidate
+    whose AABB holds the point, else the candidate with the nearest AABB
+    centre (the JAX package's _scan_candidates + _locate_chunk).
+    Returns (elements, refs, found, accepted)."""
     n, d = points.shape
-    acc = torch.zeros((n,), dtype=torch.bool, device=points.device)
-    acc_ref = torch.zeros((n, d), dtype=torch.float32, device=points.device)
-    acc_elem = cand[:, 0].contiguous()
-    best_max = torch.full((n,), float("inf"), device=points.device)
-    best_ref = acc_ref.clone()
-    best_elem = acc_elem.clone()
+    dev = points.device
+    inf = float("inf")
+    first = cand[:, 0].contiguous()
+    zeros = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    false = torch.zeros((n,), dtype=torch.bool, device=dev)
+    acc, acc_ref, acc_elem = false, zeros, first
+    best_max, best_ref, best_elem = torch.full((n,), inf, device=dev), \
+        zeros, first
+    in_found, in_ref, in_elem, in_conv = false, zeros, first, false
+    near_d = torch.full((n,), inf, dtype=torch.float64, device=dev)
+    near_ref, near_elem, near_conv = zeros, first, false
     for k in range(cand.shape[1]):
         ids = cand[:, k].contiguous()
-        ref, res = solve(points, ids)
-        conv = res < _F32_CONV_TOL
-        maxabs = ref.abs().amax(dim=-1)
-        accepted = conv & (maxabs < cfg.accept_tol)
+        ref, conv, maxabs, inside, accepted = evaluate(points, ids)
         newly = accepted & ~acc
         acc_ref = torch.where(newly[:, None], ref, acc_ref)
         acc_elem = torch.where(newly, ids, acc_elem)
         acc = acc | accepted
-        score = torch.where(conv, maxabs, float("inf"))
+        score = torch.where(conv, maxabs, inf)
         better = score < best_max
         best_max = torch.where(better, score, best_max)
         best_ref = torch.where(better[:, None], ref, best_ref)
         best_elem = torch.where(better, ids, best_elem)
-    return _assemble(fallback, cfg, acc, acc_elem, acc_ref, best_max,
-                     best_ref, best_elem)
+        if fallback != "fixed_ref":
+            continue
+        # without use_aabb every candidate "holds" the point: column 0
+        newly_in = ~in_found if inside is None else inside & ~in_found
+        in_ref = torch.where(newly_in[:, None], ref, in_ref)
+        in_elem = torch.where(newly_in, ids, in_elem)
+        in_conv = torch.where(newly_in, conv, in_conv)
+        in_found = in_found | newly_in
+        if inside is not None:
+            il = ids.long()
+            dist = ((points - 0.5 * (prep.lo[il] + prep.hi[il])) ** 2
+                    ).sum(dim=-1)
+            nearer = dist < near_d
+            near_d = torch.where(nearer, dist, near_d)
+            near_ref = torch.where(nearer[:, None], ref, near_ref)
+            near_elem = torch.where(nearer, ids, near_elem)
+            near_conv = torch.where(nearer, conv, near_conv)
+    fb = None
+    if fallback == "fixed_ref":
+        fb_ref = torch.where(in_found[:, None], in_ref, near_ref)
+        fb_conv = torch.where(in_found, in_conv, near_conv)
+        bad = ~fb_conv | (fb_ref.abs().amax(dim=-1) >= cfg.accept_tol)
+        fb = (torch.where(in_found, in_elem, near_elem),
+              torch.where(bad[:, None], _fixed_ref(n, d, dev), fb_ref))
+    return (*_assemble(fallback, cfg, acc, acc_elem, acc_ref, best_max,
+                       best_ref, best_elem, fb=fb), acc)
 
 
-def _check_scope(E, cfg, fallback, use_aabb, prefilter_m):
-    if fallback == "fixed_ref" or use_aabb or prefilter_m > 0:
-        raise NotImplementedError(
-            "fixed_ref, use_aabb and the trilinear prefilter are not "
-            "ported yet (ROADMAP A4)")
+def _prefilter_rank(points, cand, solve1, m: int):
+    """The ``m`` columns of ``cand`` [n, P] whose trilinear (8-corner)
+    Newton gives the smallest max |ref|, re-sorted into distance order so
+    the scan's first-accept semantics hold (the JAX package's
+    _prefilter_rank).  One K1 launch over all P columns; ties keep the
+    nearer column, as ``top_k`` does."""
+    n, P = cand.shape
+    ref, res = solve1(points.repeat(P, 1), cand.T.reshape(-1))
+    score = torch.where(res < _F32_CONV_TOL, ref.abs().amax(dim=-1),
+                        float("inf")).view(P, n).T
+    pos = torch.argsort(score, dim=1, stable=True)[:, :m]
+    return cand.gather(1, pos.sort(dim=1).values)
+
+
+def _check_scope(E, cfg, fallback, strategy):
     if fallback not in _FALLBACKS:
         raise ValueError(f"unknown fallback mode {fallback!r}")
-    if cfg.f64_polish or cfg.df32_polish or cfg.precision == Precision.F64:
+    if strategy not in _STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    if cfg.precision == Precision.F64:
         raise NotImplementedError(
-            "the f64 / df32 polish and Precision.F64 are not ported yet "
-            "(ROADMAP A7)")
+            "Precision.F64 is not ported: the kernels solve in f32; "
+            "LocateConfig(f64_polish=True) gives f64 refs")
     if E > GRID_MIN_SOURCES:
         raise NotImplementedError(
             f"sources of more than {GRID_MIN_SOURCES} elements take the "
             f"grid route, not ported yet (ROADMAP A6); got {E}")
 
 
-def locate(points, elem_nodes, order: int,
-           cfg: LocateConfig = DEFAULT_LOCATE, *, fallback: str = "sentinel",
-           use_aabb: bool = False, prefilter_m: int = 0,
-           chunk: int = 262_144, want_weights: bool = True,
-           device="cuda", plain: bool = False) -> LocateResult:
-    """Locate each query point in the source mesh.
+def _empty(d, device):
+    """(elements, refs, found, accepted) of zero rows."""
+    return (torch.zeros((0,), dtype=torch.int32, device=device),
+            torch.zeros((0, d), dtype=torch.float32, device=device),
+            torch.zeros((0,), dtype=torch.bool, device=device),
+            torch.zeros((0,), dtype=torch.bool, device=device))
 
-    points [N, d] (numpy or tensor; moved to ``device`` as f64);
-    elem_nodes [E, (p+1)^d, d] (numpy or tensor; prepared on the host in
-    f64, see ``_mesh_prep``).  ``fallback`` in {"sentinel", "snap",
-    "best"}.  On a CUDA device the Newton solves and the round-1 search
-    run the hand-written kernels; on the CPU, their plain twins.
-    ``plain=True`` runs the plain twins on any device (to check the
-    kernels against them).
-    """
-    device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"locate: unsupported device {device}")
-    if isinstance(elem_nodes, torch.Tensor):
-        elem_nodes = elem_nodes.detach().cpu().numpy()
-    elem_nodes = np.asarray(elem_nodes, dtype=np.float64)
-    E, _, d = elem_nodes.shape
-    _check_scope(E, cfg, fallback, use_aabb, prefilter_m)
-    points = torch.as_tensor(points, dtype=torch.float64, device=device)
-    N = points.shape[0]
-    prep = _mesh_prep(elem_nodes, order, device)
-    solve = _row_solver(prep, order, d, cfg, plain)
-    k_full = min(cfg.nelem_to_search, E)
+
+def _rescan(rows, points, out, prep, evaluate, cfg, fallback, chunk,
+            k_full):
+    """Scan rows ``rows`` again with fresh exact candidates (the full
+    ``k_full`` list), chunked, and write their (elements, refs, found,
+    accepted) into ``out`` in place."""
+    for rs in range(0, int(rows.shape[0]), chunk):
+        r = rows[rs:rs + chunk]
+        pts_r = points[r]
+        cand_r = _knn.knn(prep.centroids, pts_r, k_full)[1]
+        for dst, src in zip(out, _scan_candidates(pts_r, cand_r, evaluate,
+                                                  cfg, fallback, prep)):
+            dst[r] = src
+
+
+def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
+                   plain):
+    """The ladder route: chunks, then the scan retry.  Returns (elements,
+    refs, found, accepted, n_retry)."""
+    N, d = points.shape
+    device = points.device
+    E = prep.centroids.shape[0]
     near1 = E > _NEAR1_MIN_SOURCES
     bucket_cands = None
     if near1:
@@ -337,22 +450,18 @@ def locate(points, elem_nodes, order: int,
         else:
             cand = _knn.knn(prep.centroids, pts_c, min(k_full, 8))[1]
         C = 1 << max(0, n - 1).bit_length()
-        outs.append(_ladder_chunk(pts_c, cand, solve, cfg, fallback, C,
+        outs.append(_ladder_chunk(pts_c, cand, evaluate, cfg, fallback, C,
                                   bucket_cands, prep.centroids, k_full))
-    if outs:
-        elements, refs, found, needs_retry = (torch.cat(c) for c in
-                                              zip(*outs))
-    else:
-        elements = torch.zeros((0,), dtype=torch.int32, device=device)
-        refs = torch.zeros((0, d), dtype=torch.float32, device=device)
-        found = needs_retry = torch.zeros((0,), dtype=torch.bool,
-                                          device=device)
+    if not outs:
+        return (*_empty(d, device), 0)
+    elements, refs, found, accepted, needs_retry = (
+        torch.cat(c) for c in zip(*outs))
 
-    if fallback == "sentinel" and N:
+    if fallback == "sentinel":
         # A point outside the global source AABB (with a halo covering
         # accept_tol's reach past the hull) is inside no element: its
         # sentinel result is already exact, so it skips the retry.
-        # Snap/best results depend on the best-so-far over all
+        # Snap/best/fixed_ref results depend on the state over all
         # candidates, so those retry every crowded-out row.
         glo = prep.lo.amin(dim=0)
         ghi = prep.hi.amax(dim=0)
@@ -361,24 +470,156 @@ def locate(points, elem_nodes, order: int,
         needs_retry &= ((points >= glo - eps)
                         & (points <= ghi + eps)).all(dim=-1)
     retry = torch.nonzero(needs_retry).squeeze(1)
-    n_retry = int(retry.shape[0])
     # Crowded-out rows: unaccepted points that never reached round 4 go
     # through the exhaustive scan with fresh exact candidates, so the
     # ladder degrades to the scan's semantics, never to a silent
-    # fallback on an interior point.  Chunked like the main loop.
-    for rs in range(0, n_retry, chunk):
-        rows = retry[rs:rs + chunk]
-        pts_r = points[rows]
-        cand_r = _knn.knn(prep.centroids, pts_r, k_full)[1]
-        r_el, r_ref, r_found = _scan_candidates(pts_r, cand_r, solve, cfg,
-                                                fallback)
-        elements[rows] = r_el
-        refs[rows] = r_ref
-        found[rows] = r_found
+    # fallback on an interior point.
+    out = (elements, refs, found, accepted)
+    _rescan(retry, points, out, prep, evaluate, cfg, fallback, chunk, k_full)
+    return (*out, int(retry.shape[0]))
+
+
+def _locate_scan(points, prep, evaluate, solve1, cfg, fallback, chunk,
+                 k_full, prefilter_m, prefilter):
+    """The scan route: exact candidates, the optional trilinear
+    prefilter, the scan, and the full-list rescue of rows the prefiltered
+    list did not accept.  Returns (elements, refs, found, accepted)."""
+    N, d = points.shape
+    outs = []
+    for s in range(0, N, chunk):
+        pts_c = points[s:s + chunk]
+        cand = _knn.knn(prep.centroids, pts_c, k_full)[1]
+        if prefilter:
+            # only the nearest prefilter_pool candidates enter the ranking
+            pool = min(max(prefilter_m, cfg.prefilter_pool), k_full)
+            cand = _prefilter_rank(pts_c, cand[:, :pool], solve1,
+                                   prefilter_m)
+        outs.append(_scan_candidates(pts_c, cand, evaluate, cfg, fallback,
+                                     prep))
+    if not outs:
+        return _empty(d, points.device)
+    out = tuple(torch.cat(c) for c in zip(*outs))
+    if prefilter:
+        # the trilinear proxy can mis-rank candidates of strongly curved
+        # elements: rows it left unaccepted take the full candidate list
+        _rescan(torch.nonzero(~out[3]).squeeze(1), points, out, prep,
+                evaluate, cfg, fallback, chunk, k_full)
+    return out
+
+
+def _f64_polish(points, elements, refs, accepted, prep, order, cfg, chunk):
+    """Two f64 Newton steps from the f32 refs on the f64 lattice (the JAX
+    package's locate.py:671-709, plain torch: it has no Pallas origin,
+    and as the oracle of the df32 polish it shares no code with K4).
+    An accepted row takes the polished ref where its residual is below
+    the f32 convergence threshold; every row comes back f64."""
+    d = points.shape[1]
+    n_nodes = (order + 1) ** d
+    out = []
+    for s in range(0, points.shape[0], chunk):
+        ids = elements[s:s + chunk].clamp_min(0).long()
+        p_c = (points[s:s + chunk] - prep.ctr[ids]) * prep.inv_scale[ids,
+                                                                     None]
+        ref0 = refs[s:s + chunk].to(torch.float64)
+        ref64, res = shape._newton_iterations(
+            order, prep.nodes64[ids].view(-1, n_nodes, d), p_c, ref0,
+            _F64_POLISH_ITERS, cfg.newton_clamp)
+        good = accepted[s:s + chunk] & (res < _F32_CONV_TOL)
+        out.append(torch.where(good[:, None], ref64, ref0))
+    return torch.cat(out)
+
+
+def _df32_polish(points, elements, refs, accepted, prep, order, cfg, chunk,
+                 plain):
+    """K4 over the accepted rows (the JAX package's locate.py:1445-1496):
+    returns the pair (refs, refs_lo); rows the polish does not keep (not
+    accepted, or a step over the guard) keep their f32 refs and lo = 0."""
+    d = points.shape[1]
+    fn = _polish.polish_pairs_ref if plain else _polish.polish_pairs
+    his, los = [], []
+    for s in range(0, points.shape[0], chunk):
+        el = elements[s:s + chunk]
+        ref0 = refs[s:s + chunk].contiguous()
+        hi, lo, ok = fn(points[s:s + chunk].contiguous(),
+                        el.clamp_min(0).contiguous(), ref0, prep.ctr,
+                        prep.inv_scale, prep.nodes64, order, d,
+                        cfg.df32_polish_iters)
+        keep = (accepted[s:s + chunk] & (el >= 0) & ok)[:, None]
+        his.append(torch.where(keep, hi, ref0))
+        los.append(torch.where(keep, lo, 0.0))
+    return torch.cat(his), torch.cat(los)
+
+
+def locate(points, elem_nodes, order: int,
+           cfg: LocateConfig = DEFAULT_LOCATE, *, fallback: str = "sentinel",
+           use_aabb: bool = False, prefilter_m: int = 0,
+           strategy: str = "auto", chunk: int = 262_144,
+           want_weights: bool = True, device="cuda",
+           plain: bool = False) -> LocateResult:
+    """Locate each query point in the source mesh.
+
+    points [N, d] (numpy or tensor; moved to ``device`` as f64);
+    elem_nodes [E, (p+1)^d, d] (numpy or tensor; prepared on the host in
+    f64, see ``_mesh_prep``).  ``fallback`` in {"sentinel", "snap",
+    "best", "fixed_ref"}; ``strategy`` in {"auto", "ladder", "scan"}
+    ("auto" is the ladder); ``prefilter_m`` > 0 ranks the scan's
+    candidates by the trilinear prefilter; the polish options of ``cfg``
+    run on the ladder only (the scan warns and skips them).  On a CUDA
+    device the Newton solves, the round-1 search and the df32 polish run
+    the hand-written kernels; on the CPU, their plain twins.
+    ``plain=True`` runs the plain twins on any device (to check the
+    kernels against them).
+    """
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"locate: unsupported device {device}")
+    if isinstance(elem_nodes, torch.Tensor):
+        elem_nodes = elem_nodes.detach().cpu().numpy()
+    elem_nodes = np.asarray(elem_nodes, dtype=np.float64)
+    E, _, d = elem_nodes.shape
+    _check_scope(E, cfg, fallback, strategy)
+    ladder = strategy != "scan"
+    polish = cfg.f64_polish or cfg.df32_polish
+    if polish and not ladder:
+        warnings.warn(
+            "f64_polish / df32_polish run on the ladder only; "
+            "strategy='scan' skips them", stacklevel=2)
+        polish = False
+    points = torch.as_tensor(points, dtype=torch.float64, device=device)
+    N = points.shape[0]
+    prep = _mesh_prep(elem_nodes, order, device, want64=polish)
+    solve = _row_solver(prep, prep.nodes, order, d,
+                        cfg.newton_iters + cfg.polish_iters,
+                        cfg.newton_clamp, plain)
+    evaluate = _make_eval(solve, prep, cfg, use_aabb)
+    k_full = min(cfg.nelem_to_search, E)
+
+    n_retry = 0
+    if ladder:
+        elements, refs, found, accepted, n_retry = _locate_ladder(
+            points, prep, evaluate, cfg, fallback, chunk, k_full, plain)
+    else:
+        prefilter = 0 < prefilter_m < k_full and order > 1
+        solve1 = _row_solver(prep, prep.corners, 1, d, cfg.prefilter_iters,
+                             cfg.newton_clamp, plain)
+        elements, refs, found, accepted = _locate_scan(
+            points, prep, evaluate, solve1, cfg, fallback, chunk, k_full,
+            prefilter_m, prefilter)
+
+    refs_lo = None
+    if polish and N:
+        # after the retry, so scan-retried accepted rows are polished too
+        if cfg.f64_polish:
+            refs = _f64_polish(points, elements, refs, accepted, prep, order,
+                               cfg, chunk)
+        else:
+            refs, refs_lo = _df32_polish(points, elements, refs, accepted,
+                                         prep, order, cfg, chunk, plain)
 
     if want_weights:
         weights = torch.where(found[:, None],
                               gll.tensor_basis(order, refs), 0.0)
     else:
-        weights = torch.zeros((N, 0), dtype=torch.float32, device=device)
-    return LocateResult(elements, refs, weights, found, n_retry)
+        weights = torch.zeros((N, 0), dtype=refs.dtype, device=device)
+    return LocateResult(elements, refs, weights, found, accepted, refs_lo,
+                        n_retry)

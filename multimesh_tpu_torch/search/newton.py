@@ -1,10 +1,12 @@
 """K1: the batched Newton inverse map over (point, element) rows.
 
 Counterpart of the JAX package's ``search/pallas_newton.py``
-(``newton_refs_rows`` for the ladder, ``newton_refs`` for the scan
-retry).  The kernel is ``csrc/newton_rows.cu``; ``newton_refs_rows_ref``
-is its plain PyTorch twin, ``core.shape._newton_iterations`` in f32 on
-the gathered unit-frame lattice rows.
+(``newton_refs_rows`` for the ladder, ``newton_refs`` for the scan and
+for its trilinear prefilter, which runs the kernel at order 1 on the
+element corners).  The kernel is ``csrc/newton_rows.cu``;
+``newton_refs_rows_ref`` is its plain PyTorch twin,
+``core.shape._newton_iterations`` in f32 on the gathered unit-frame
+lattice rows.
 
 Both take the same arguments:
 
@@ -96,7 +98,10 @@ def newton_rows(points, ids, ctr, inv_scale, nodes, order: int, dim: int,
     )
     _build.check(lib, err, "newton_rows")
     newton_rows.launches += 1
+    if order == 1:
+        newton_rows.launches_order1 += 1
     return refs, res
 
 
 newton_rows.launches = 0  # kernel launches in this process
+newton_rows.launches_order1 = 0  # of which at order 1 (the prefilter's)

@@ -17,7 +17,7 @@ setup(
     ),
     packages=find_packages(exclude=["tests"]),
     # the CUDA sources multimesh_tpu_torch compiles with nvcc on first use
-    package_data={"multimesh_tpu_torch": ["csrc/*.cu"]},
+    package_data={"multimesh_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",

@@ -15,8 +15,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from multimesh_tpu_torch import TransferOperator, testing  # noqa: E402
+from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
+from multimesh_tpu_torch.core import shape  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
-from multimesh_tpu_torch.search import nearest, newton  # noqa: E402
+from multimesh_tpu_torch.search import nearest, newton, polish  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -115,6 +117,13 @@ def test_wrappers_refuse_cpu_cuda_mix(dev):
                            1, 3, 18, 8.0)
     with pytest.raises(ValueError):
         nearest.nearest(pts, prep.centroids)
+    prep64 = tloc._mesh_prep(mesh.points, 1, dev, want64=True)
+    with pytest.raises(ValueError):
+        polish.polish_pairs(pts, ids, pts.float(), prep64.ctr,
+                            prep64.inv_scale, prep64.nodes64, 1, 3, 1)
+    fields = torch.zeros((1, mesh.nelem, 8), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        polish.apply_pairs(pts.float(), pts.float(), ids, fields, 1, 3)
 
 
 def test_transfer_on_card_matches_plain_path(dev):
@@ -164,3 +173,121 @@ def test_scan_retry_on_card_matches_plain_path(dev):
     v, pv = op.apply(fields), pop.apply(fields)
     assert float(((v - pv).abs() / pv.abs().clamp_min(1e-30))[same].max()) \
         <= 1e-5
+
+
+def _polish_rows(dev, order, dim, M, seed):
+    """Known refs in a warped box mesh, the f64 points they map to, and
+    f32 warm starts 3e-6 off: the polish's arguments and the true refs."""
+    shape_ = (6, 6, 6) if dim == 3 else (20, 20)
+    mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
+    prep = tloc._mesh_prep(mesh.points, order, dev, want64=True)
+    rng = np.random.default_rng(seed)
+    refs = torch.as_tensor(rng.uniform(-0.95, 0.95, (M, dim)), device=dev)
+    ids = torch.as_tensor(rng.integers(0, mesh.nelem, M, dtype=np.int32),
+                          device=dev)
+    nodes = torch.as_tensor(mesh.points, device=dev)[ids.long()]
+    pts = shape.forward_map(order, nodes, refs).contiguous()
+    ref0 = (refs + torch.as_tensor(rng.uniform(-3e-6, 3e-6, (M, dim)),
+                                   device=dev)).float().contiguous()
+    return (pts, ids, ref0, prep.ctr, prep.inv_scale, prep.nodes64, order,
+            dim), refs
+
+
+@pytest.mark.parametrize("order,dim", [(1, 2), (1, 3), (2, 2), (2, 3),
+                                       (4, 2), (4, 3)])
+def test_polish_kernel_matches_twin(dev, order, dim):
+    """K4 against its twin on 20,000 rows: ok agrees everywhere, hi + lo
+    to 1e-11, and both within 1e-10 of the known refs; one launch."""
+    args, refs = _polish_rows(dev, order, dim, 20_000, seed=order + dim)
+    before = polish.polish_pairs.launches
+    hi, lo, ok = polish.polish_pairs(*args, 1)
+    assert polish.polish_pairs.launches == before + 1
+    p_hi, p_lo, p_ok = polish.polish_pairs_ref(*args, 1)
+    assert torch.equal(ok, p_ok) and ok.all()
+    got, want = hi.double() + lo.double(), p_hi.double() + p_lo.double()
+    assert float((got - want).abs().max()) <= 1e-11
+    assert float((got - refs).abs().max()) < 1e-10
+
+
+def test_polish_kernel_bad_ids_give_nan(dev):
+    """An out-of-range element id reads nothing: NaN refs, ok False; a
+    warm start in the wrong element is not ok."""
+    args, _ = _polish_rows(dev, 2, 3, 6, seed=1)
+    ids = args[1].clone()
+    ids[0], ids[1] = -1, 6 ** 3
+    ids[2] = (ids[2] + 7) % 6 ** 3
+    hi, lo, ok = polish.polish_pairs(args[0], ids, *args[2:], 1)
+    assert torch.isnan(hi[:2]).all() and torch.isnan(lo[:2]).all()
+    assert not ok[:3].any() and ok[3:].all()
+
+
+@pytest.mark.parametrize("order,dim", [(2, 3), (4, 2), (4, 3)])
+def test_apply_kernel_matches_twin(dev, order, dim):
+    """K5 against its twin on 50,000 rows x 3 parameters: relative 1e-12;
+    element -1 gives 0, an id past E gives NaN; one launch."""
+    shape_ = (6, 6, 6) if dim == 3 else (20, 20)
+    mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
+    rng = np.random.default_rng(order * 10 + dim)
+    base = testing.smooth_field(mesh.points)
+    fields = torch.as_tensor(np.stack([base, 2 * base - 1, base ** 2]),
+                             device=dev)
+    refs = rng.uniform(-1, 1, (50_000, dim))
+    hi = torch.as_tensor(refs.astype(np.float32), device=dev)
+    lo = (torch.as_tensor(refs, device=dev) - hi.double()).float()
+    el = torch.as_tensor(rng.integers(0, mesh.nelem, 50_000, dtype=np.int32),
+                         device=dev)
+    el[::11] = -1
+    before = polish.apply_pairs.launches
+    got = polish.apply_pairs(hi, lo, el, fields, order, dim)
+    assert polish.apply_pairs.launches == before + 1
+    want = polish.apply_pairs_ref(hi, lo, el, fields, order, dim)
+    assert (got[::11] == 0).all()
+    assert float(((got - want).abs() / want.abs().clamp_min(1e-12)).max()) \
+        <= 1e-12
+    el[0] = mesh.nelem
+    assert torch.isnan(polish.apply_pairs(hi, lo, el, fields, order,
+                                          dim)[0]).all()
+
+
+def test_scan_prefilter_on_card_matches_plain_path(dev):
+    """``strategy="scan"`` with the trilinear prefilter, fixed_ref and
+    AABB: the kernel path launches K1 at order 1 and agrees with the
+    plain path on >= 99.9% of elements and on every accepted flag."""
+    src = testing.shell_mesh(n_lat=8, n_lon=8, n_rad=8, order=4)  # E = 512
+    pts = testing.shell_targets(50_000, seed=4)
+    pts[:1000] *= 6.38e6 / np.linalg.norm(pts[:1000], axis=1)[:, None]
+    pts = torch.as_tensor(pts, device=dev)
+    kw = dict(fallback="fixed_ref", use_aabb=True, prefilter_m=4,
+              strategy="scan", device=dev)
+    cfg = LocateConfig(accept_tol=1.04)
+    n1 = newton.newton_rows.launches_order1
+    res = tloc.locate(pts, src.points, 4, cfg, **kw)
+    assert newton.newton_rows.launches_order1 > n1
+    plain = tloc.locate(pts, src.points, 4, cfg, plain=True, **kw)
+    assert (res.elements == plain.elements).double().mean() >= 0.999
+    assert (res.accepted == plain.accepted).double().mean() >= 0.9999
+    assert res.found.all() and res.accepted[1000:].all()
+
+
+def test_df32_transfer_on_card_matches_plain_twins(dev):
+    """build with df32_polish + apply through K1, K2, K4 and K5 against
+    the plain twins on the card: elements agree on >= 99.9% and values
+    on agreeing rows to rtol 1e-10 (both polish to f64 refs)."""
+    src = testing.shell_mesh(n_lat=8, n_lon=8, n_rad=8, order=4)  # E = 512
+    pts = torch.as_tensor(testing.shell_targets(100_000, seed=6), device=dev)
+    base = testing.element_nodal_field(src, "smooth")
+    fields = torch.as_tensor(np.stack([base, 2 * base]), device=dev)
+    cfg = LocateConfig(df32_polish=True)
+    k4, k5 = polish.polish_pairs.launches, polish.apply_pairs.launches
+    op = TransferOperator.build(src.points, pts, order=4, cfg=cfg,
+                                fallback="snap", device=dev)
+    v = op.apply(fields)
+    assert polish.polish_pairs.launches > k4
+    assert polish.apply_pairs.launches > k5
+    p_op = TransferOperator.build(src.points, pts, order=4, cfg=cfg,
+                                  fallback="snap", device=dev, plain=True)
+    pv = polish.apply_pairs_ref(p_op.refs, p_op.refs_lo, p_op.elements,
+                                fields, 4, 3)
+    same = op.elements == p_op.elements
+    assert same.double().mean() >= 0.999
+    assert float(((v - pv).abs() / pv.abs())[same].max()) <= 1e-10

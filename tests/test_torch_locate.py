@@ -1,13 +1,19 @@
-"""The port's ``locate`` (the ladder of the main path) against the JAX
-package's ``locate(..., engine="xla", strategy="ladder")``.
+"""The port's ``locate`` against the JAX package's ``locate(...,
+engine="xla")``: the ladder (``strategy="ladder"``) with every fallback,
+``use_aabb`` and the polish options, and the scan (``strategy="scan"``)
+with the trilinear prefilter.
 
-On the CPU that JAX call takes the same route as its TPU path for
+On the CPU the JAX ladder takes the same route as its TPU path for
 64 < E <= 16,384: nearest-centroid round 1, bucket top-8 rounds 2-3, an
 exact k = 20 round 4, and the scan retry of crowded-out rows.  Its Newton
 runs f32 bulk iterations plus an f64 polish (convergence at 1e-8), the
-port's the f32 kernel schedule (convergence at 1e-4), so refs agree to
-f32 grade, not bitwise.
+port's the f32 kernel schedule (convergence at 1e-4), so unpolished refs
+agree to f32 grade, not bitwise; polished refs agree to 1e-10.
 """
+import dataclasses
+import importlib
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -17,9 +23,14 @@ torch.set_num_threads(2)
 from multimesh_tpu import testing as jmt  # noqa: E402
 from multimesh_tpu.config import LocateConfig  # noqa: E402
 from multimesh_tpu.search import locate as jlocate  # noqa: E402
+# the module (the package's ``locate`` name is the function)
+jlocate_mod = importlib.import_module("multimesh_tpu.search.locate")
 from multimesh_tpu_torch.config import (  # noqa: E402
     LocateConfig as TLocateConfig,
 )
+from multimesh_tpu_torch.config import Precision as TPrecision  # noqa: E402
+from multimesh_tpu_torch.config import FALLBACK_REF_COORD  # noqa: E402
+from multimesh_tpu_torch.search import knn as tknn  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
 
 N = 4096
@@ -42,19 +53,27 @@ def shell():
 
 
 @pytest.fixture(scope="module")
-def jax_ladder(shell):
-    """fallback -> the JAX ladder's LocateResult on the shell fixture,
-    computed once per module."""
+def jax_run(shell):
+    """(strategy, fallback, use_aabb, prefilter_m) -> the JAX package's
+    xla LocateResult on the shell fixture, computed once per module."""
     mesh, pts, _ = shell
     done = {}
 
-    def run(fallback):
-        if fallback not in done:
-            done[fallback] = jlocate(pts, mesh.points, 4, fallback=fallback,
-                                     engine="xla", strategy="ladder")
-        return done[fallback]
+    def run(strategy, fallback, use_aabb=False, prefilter_m=0):
+        key = (strategy, fallback, use_aabb, prefilter_m)
+        if key not in done:
+            done[key] = jlocate(pts, mesh.points, 4, fallback=fallback,
+                                use_aabb=use_aabb, prefilter_m=prefilter_m,
+                                engine="xla", strategy=strategy)
+        return done[key]
 
     return run
+
+
+@pytest.fixture(scope="module")
+def jax_ladder(jax_run):
+    """fallback -> the JAX ladder's LocateResult on the shell fixture."""
+    return lambda fallback: jax_run("ladder", fallback)
 
 
 def _values(elements, weights, field):
@@ -179,29 +198,20 @@ def test_empty_query_set(shell):
     assert got.weights.shape == (0, 125) and got.found.shape == (0,)
 
 
-@pytest.mark.parametrize("case", ["fixed_ref", "use_aabb", "prefilter",
-                                  "f64_polish", "df32_polish", "grid"])
+@pytest.mark.parametrize("case", ["grid", "f64_precision"])
 def test_out_of_slice_options_raise(case):
     """Options outside the ported slice raise NotImplementedError naming
-    their ROADMAP item instead of silently taking another path."""
+    what is missing instead of silently taking another path."""
     mesh = jmt.box_mesh(shape=(2, 2, 2), order=1)
     pts = np.full((4, 3), 0.5)
-    kw, cfg, nodes = {}, TLocateConfig(), mesh.points
-    item = "A4"
-    if case == "fixed_ref":
-        kw["fallback"] = "fixed_ref"
-    elif case == "use_aabb":
-        kw["use_aabb"] = True
-    elif case == "prefilter":
-        kw["prefilter_m"] = 4
-    elif case == "f64_polish":
-        cfg, item = TLocateConfig(f64_polish=True), "A7"
-    elif case == "df32_polish":
-        cfg, item = TLocateConfig(df32_polish=True), "A7"
-    else:
+    cfg, nodes = TLocateConfig(), mesh.points
+    if case == "grid":
         nodes, item = np.zeros((16_385, 8, 3)), "A6"
+    else:
+        cfg = TLocateConfig(precision=TPrecision.F64)
+        item = "Precision.F64"
     with pytest.raises(NotImplementedError, match=item):
-        tloc.locate(pts, nodes, 1, cfg, device="cpu", **kw)
+        tloc.locate(pts, nodes, 1, cfg, device="cpu")
 
 
 def test_unknown_fallback_and_device_raise():
@@ -211,6 +221,8 @@ def test_unknown_fallback_and_device_raise():
         tloc.locate(pts, mesh.points, 1, fallback="nearest", device="cpu")
     with pytest.raises(ValueError, match="device"):
         tloc.locate(pts, mesh.points, 1, device="meta")
+    with pytest.raises(ValueError, match="strategy"):
+        tloc.locate(pts, mesh.points, 1, strategy="grid", device="cpu")
 
 
 def test_config_matches_jax():
@@ -222,3 +234,194 @@ def test_config_matches_jax():
               "f64_polish", "df32_polish", "df32_polish_iters"):
         assert getattr(a, f) == getattr(b, f), f
     assert a.precision.value == b.precision.value
+
+
+@pytest.mark.parametrize("fallback,use_aabb", [("fixed_ref", True),
+                                               ("fixed_ref", False),
+                                               ("sentinel", True)])
+def test_fixed_ref_and_aabb_match_jax(shell, jax_run, fallback, use_aabb):
+    """``fixed_ref`` (the scan retry's first-in-AABB / nearest-centre
+    fallback for every row the ladder leaves unaccepted) and the AABB
+    accept test, against the JAX ladder: elements and found identical on
+    every row, refs to f32 grade (1e-5; fixed refs are stored in f32)."""
+    mesh, pts, _ = shell
+    want = jax_run("ladder", fallback, use_aabb)
+    got = tloc.locate(pts, mesh.points, 4, fallback=fallback,
+                      use_aabb=use_aabb, device="cpu")
+    np.testing.assert_array_equal(got.elements.numpy(),
+                                  np.asarray(want.elements))
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(want.found))
+    np.testing.assert_allclose(got.refs.numpy(), np.asarray(want.refs),
+                               atol=1e-5)
+    unaccepted = ~got.accepted
+    assert got.n_retry > 0
+    if fallback == "fixed_ref":
+        # every unaccepted row took the scan retry; the far exterior
+        # rows of this fixture converge nowhere and take the fixed ref
+        assert got.found.all() and got.n_retry >= int(unaccepted.sum())
+        fixed = torch.tensor(FALLBACK_REF_COORD, dtype=torch.float32)
+        assert (got.refs[unaccepted] == fixed).all(dim=-1).any()
+    else:
+        assert torch.equal(got.accepted, got.found)
+
+
+@pytest.mark.parametrize("fallback,use_aabb", [("sentinel", False),
+                                               ("fixed_ref", True)])
+def test_scan_prefilter_matches_jax(shell, jax_run, fallback, use_aabb):
+    """``strategy="scan"`` with ``prefilter_m=4`` against the JAX scan.
+    The JAX xla prefilter judges convergence at 1e-8 on an f64 residual,
+    which its 8 f32 steps never reach, so it keeps the 4 nearest
+    candidates; the port's ranks them by K1 at order 1 on the corners
+    (convergence at 1e-4).  Both rescue every row they leave unaccepted
+    with the full list, so they can differ only where two elements accept
+    a point near their shared face: elements agree on >= 99.9% of rows,
+    found on all, refs to 1e-5 where elements agree."""
+    mesh, pts, _ = shell
+    want = jax_run("scan", fallback, use_aabb, 4)
+    got = tloc.locate(pts, mesh.points, 4, fallback=fallback,
+                      use_aabb=use_aabb, prefilter_m=4, strategy="scan",
+                      device="cpu")
+    ge, we = got.elements.numpy(), np.asarray(want.elements)
+    assert (ge == we).mean() >= 0.999
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(want.found))
+    same = ge == we
+    np.testing.assert_allclose(got.refs.numpy()[same],
+                               np.asarray(want.refs)[same], atol=1e-5)
+    assert got.n_retry == 0
+    # the scan accepts what the ladder accepts
+    ladder = tloc.locate(pts, mesh.points, 4, fallback=fallback,
+                         use_aabb=use_aabb, device="cpu")
+    assert torch.equal(got.accepted, ladder.accepted)
+
+
+def test_prefilter_rank_keeps_distance_order():
+    """``_prefilter_rank`` keeps ``m`` of the candidate columns, in their
+    distance order, and the element that holds the point survives."""
+    mesh = jmt.box_mesh(shape=(4, 4, 4), order=2, warp=0.1)
+    prep = tloc._mesh_prep(mesh.points, 2, "cpu")
+    pts = torch.as_tensor(
+        np.random.default_rng(4).uniform(0.05, 0.95, (300, 3)))
+    cand = tknn.knn(prep.centroids, pts, 12)[1]
+    solve1 = tloc._row_solver(prep, prep.corners, 1, 3, 8, 8.0, False)
+    kept = tloc._prefilter_rank(pts, cand, solve1, 4)
+    assert kept.shape == (300, 4)
+    pos = (kept[:, :, None] == cand[:, None, :]).int().argmax(dim=-1)
+    assert (pos[:, 1:] > pos[:, :-1]).all()
+    holder = tloc.locate(pts, mesh.points, 2, device="cpu")
+    assert holder.found.all()
+    assert (kept == holder.elements[:, None]).any(dim=1).all()
+
+
+def test_prefilter_rank_matches_jax_pallas(shell):
+    """The ranking itself against the JAX package's TPU route: its
+    ``_prefilter_rank`` driven by ``_make_pallas_invert`` on
+    ``corners_c32`` at order 1 (K3 in interpret mode, 8 steps), the port's
+    by the K1 twin on ``corners32``, on the same 12 candidate columns of
+    1,024 points (a third of them outside the shell).  Centring differs
+    in rounding only (split f32 there, f64 here): the scores (max |ref|,
+    inf where unconverged) converge on the same pairs and agree to 1e-5.
+    The shell's symmetric neighbours tie to an ulp, so a tie at the m-th
+    place may keep either column: the kept columns score the same to
+    1e-5 on every row, and are the same columns in the same order on
+    every row whose m-th and (m+1)-th scores are more than 1e-5 apart."""
+    mesh, pts, _ = shell
+    pts = pts[N // 6 - 341:N // 6 + 683]
+    n = pts.shape[0]
+    cfg = LocateConfig()
+    prep = tloc._mesh_prep(mesh.points, 4, "cpu")
+    pool, m = cfg.prefilter_pool, 4
+    cand = tknn.knn(prep.centroids, torch.from_numpy(pts), pool)[1]
+    solve1 = tloc._row_solver(prep, prep.corners, 1, 3, cfg.prefilter_iters,
+                              cfg.newton_clamp, False)
+    got = tloc._prefilter_rank(torch.from_numpy(pts), cand, solve1,
+                               m).numpy()
+    ref, res = solve1(torch.from_numpy(pts).repeat(pool, 1),
+                      cand.T.reshape(-1))
+    t_score = torch.where(res < 1e-4, ref.abs().amax(-1), float("inf")
+                          ).view(pool, n).T.numpy()
+
+    jprep = jlocate_mod._mesh_prep_host(mesh.points, 4, 3, True)
+    cfg1 = dataclasses.replace(cfg, newton_iters=cfg.prefilter_iters,
+                               polish_iters=0)
+    invert1 = jlocate_mod._make_pallas_invert(
+        jnp.asarray(pts), jprep["corners_c32"], jprep["centering"], 1, cfg1,
+        interpret=True)
+    j_cand = jnp.asarray(cand.numpy())
+    want = np.asarray(jlocate_mod._prefilter_rank(j_cand, invert1, m, pool))
+    j_score = np.stack([np.where(c, mx, np.inf) for _, c, mx in (
+        invert1(j_cand[:, k]) for k in range(pool))], axis=1)
+
+    conv = np.isfinite(j_score)
+    np.testing.assert_array_equal(np.isfinite(t_score), conv)
+    assert conv[341:].any(axis=1).all()  # interior rows converge somewhere
+    np.testing.assert_allclose(t_score[conv], j_score[conv], atol=1e-5)
+
+    def kept_scores(kept):
+        pos = (kept[:, :, None] == cand.numpy()[:, None, :]).argmax(-1)
+        return np.sort(np.take_along_axis(j_score, pos, 1), axis=1)
+
+    assert got.shape == want.shape == (n, m)
+    g, w = kept_scores(got), kept_scores(want)
+    np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
+    np.testing.assert_allclose(g[np.isfinite(g)], w[np.isfinite(w)],
+                               atol=1e-5)
+    ranked = np.sort(j_score, axis=1)
+    with np.errstate(invalid="ignore"):  # inf - inf: a tie, not clear
+        clear = ranked[:, m] - ranked[:, m - 1] > 1e-5
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got[clear], want[clear])
+    # the ranking is no distance cut: some rows keep a farther column
+    assert (got != cand.numpy()[:, :m]).any()
+
+
+def test_prefilter_is_ignored_on_the_ladder(shell):
+    """As in the JAX package, the ladder takes ``prefilter_m`` and runs
+    as without it."""
+    mesh, pts, _ = shell
+    a = tloc.locate(pts[:1024], mesh.points, 4, fallback="snap",
+                    device="cpu")
+    b = tloc.locate(pts[:1024], mesh.points, 4, fallback="snap",
+                    prefilter_m=4, device="cpu")
+    for x, y in ((a.elements, b.elements), (a.refs, b.refs),
+                 (a.found, b.found), (a.accepted, b.accepted)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("polish", ["df32", "f64"])
+def test_polished_refs_match_jax_f64(shell, jax_ladder, polish):
+    """The df32 pair (refs + refs_lo, through the K4 twin) and the
+    f64-polished refs both agree with the JAX xla ladder's f64 refs to
+    1e-10 on every accepted row (all interior rows here); rows the
+    polish skips keep their f32 refs."""
+    mesh, pts, _ = shell
+    want = jax_ladder("snap")
+    cfg = TLocateConfig(df32_polish=polish == "df32",
+                        f64_polish=polish == "f64")
+    got = tloc.locate(pts, mesh.points, 4, cfg, fallback="snap",
+                      device="cpu")
+    plain = tloc.locate(pts, mesh.points, 4, fallback="snap", device="cpu")
+    acc = got.accepted.numpy()
+    assert acc[N // 6:].all()
+    assert (got.elements.numpy()[acc] == np.asarray(want.elements)[acc]
+            ).all()
+    if polish == "df32":
+        assert got.refs.dtype == torch.float32
+        refs = got.refs.double() + got.refs_lo.double()
+        assert (got.refs_lo[~got.accepted] == 0).all()
+    else:
+        assert got.refs_lo is None and got.refs.dtype == torch.float64
+        refs = got.refs
+    np.testing.assert_allclose(refs.numpy()[acc], np.asarray(want.refs)[acc],
+                               rtol=0, atol=1e-10)
+    assert torch.equal(refs[~got.accepted],
+                       plain.refs[~got.accepted].double())
+
+
+def test_scan_skips_polish_with_a_warning(shell):
+    """The polish runs on the ladder only: the scan warns and skips it."""
+    mesh, pts, _ = shell
+    with pytest.warns(UserWarning, match="ladder only"):
+        got = tloc.locate(pts[N // 6:N // 6 + 64], mesh.points, 4,
+                          TLocateConfig(df32_polish=True), strategy="scan",
+                          device="cpu")
+    assert got.refs_lo is None and got.refs.dtype == torch.float32

@@ -1,12 +1,15 @@
 """The slice as a whole: ``TransferOperator.build(...).apply(...)`` of the
-port against the JAX package's ``TransferOperator``, the exchange of
-operator state between the two packages (``from_numpy``, ``save`` and
-``load`` in one on-disk format), and the port's independence from JAX.
+port against the JAX package's ``TransferOperator`` (also with the df32
+polish and its pair apply), the exchange of operator state between the
+two packages (``from_numpy``, ``save`` and ``load`` in one on-disk
+format, ``refs_lo.npy`` included), and the port's independence from JAX.
 """
 import os
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -19,9 +22,11 @@ from multimesh_tpu.hashing import content_fingerprint  # noqa: E402
 from multimesh_tpu.ops import TransferOperator as JOp  # noqa: E402
 from multimesh_tpu_torch import TransferOperator as TOp  # noqa: E402
 from multimesh_tpu_torch import config as tconfig  # noqa: E402
+from multimesh_tpu_torch.core import gll as tgll  # noqa: E402
 from multimesh_tpu_torch.hashing import (  # noqa: E402
     content_fingerprint as t_fingerprint,
 )
+from multimesh_tpu_torch.search import locate as tlocate  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 2048
@@ -203,3 +208,130 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert int(out.stdout.split()[1]) >= 14
+
+
+@pytest.fixture(scope="module")
+def df32_op(slice_case):
+    """The slice's operator with ``df32_polish=True`` (K4's twin on the
+    CPU)."""
+    mesh, pts, _ = slice_case
+    cfg = tconfig.LocateConfig(nelem_to_search=20,
+                               precision=tconfig.Precision.MIXED,
+                               df32_polish=True)
+    return TOp.build(mesh.points, pts, order=ORDER, cfg=cfg,
+                     fallback="snap", device="cpu")
+
+
+def test_df32_operator_matches_jax_f64(slice_case, jax_op, torch_op,
+                                       df32_op):
+    """The df32 operator's pair apply (K5's twin) gives f64 values: on
+    rows whose elements agree (>= 95%; a shared face belongs to either)
+    they match the JAX xla operator's f64 refs to rtol 1e-10, and its
+    error against the analytic field is no larger than the JAX
+    operator's plus 1e-10."""
+    mesh, pts, fields = slice_case
+    assert df32_op.refs_lo is not None and df32_op.refs.dtype == torch.float32
+    assert torch.equal(df32_op.elements, torch_op.elements)
+    got = df32_op.apply(torch.from_numpy(fields))
+    assert got.dtype == torch.float64 and got.shape == (N, 3)
+    want = np.asarray(jax_op.apply(fields))
+    same = df32_op.elements.numpy() == np.asarray(jax_op.elements)
+    assert same.mean() >= 0.95
+    np.testing.assert_allclose(got.numpy()[same], want[same], rtol=1e-10)
+    truth = jmt.smooth_field(pts)
+    err_t = np.max(np.abs(got.numpy()[:, 0] - truth) / np.abs(truth))
+    err_j = np.max(np.abs(want[:, 0] - truth) / np.abs(truth))
+    assert err_t <= err_j + 1e-10, (err_t, err_j)
+
+
+def test_df32_weights_and_save_load_roundtrip(slice_case, df32_op,
+                                              tmp_path):
+    """``weights`` come from the f64 sum of the pair; save writes
+    refs_lo.npy, load reads it back, and the dense save keeps the pair's
+    precision."""
+    _, _, fields = slice_case
+    pair = df32_op.refs.double() + df32_op.refs_lo.double()
+    w = df32_op.weights
+    assert w.dtype == torch.float64
+    assert torch.equal(w, tgll.tensor_basis(ORDER, pair))
+    want = df32_op.apply(torch.from_numpy(fields))
+    df32_op.save(tmp_path / "compact")
+    assert os.path.exists(tmp_path / "compact" / "refs_lo.npy")
+    back = TOp.load(tmp_path / "compact", device="cpu")
+    assert torch.equal(back.refs_lo, df32_op.refs_lo)
+    assert torch.equal(back.apply(torch.from_numpy(fields)), want)
+    df32_op.save(tmp_path / "dense", dense=True)
+    dense = TOp.load(tmp_path / "dense", device="cpu")
+    np.testing.assert_allclose(dense.apply(torch.from_numpy(fields)).numpy(),
+                               want.numpy(), rtol=1e-13)
+
+
+@pytest.fixture(scope="module")
+def pair_state():
+    """Seeded df32 operator state on an order-2 shell (the JAX pair apply
+    is exact under ``disable_jit`` at order 2; at order 4 its interpret
+    kernel is not): elements with some -1, f32 refs, f32 residuals."""
+    order, M = 2, 300
+    mesh = jmt.shell_mesh(n_lat=3, n_lon=3, n_rad=2, order=order)
+    rng = np.random.default_rng(9)
+    refs = rng.uniform(-0.99, 0.99, (M, 3))
+    hi = refs.astype(np.float32)
+    lo = (refs - hi.astype(np.float64)).astype(np.float32)
+    elements = rng.integers(0, mesh.nelem, M).astype(np.int32)
+    elements[::17] = -1
+    base = jmt.element_nodal_field(mesh, "smooth")
+    fields = np.stack([base, 2.0 * base + 1.0, base ** 2])
+    return order, elements, hi, lo, elements >= 0, fields
+
+
+def test_jax_df32_operator_loads_in_port(pair_state, tmp_path):
+    """A JAX operator built from seeded (elements, refs, refs_lo, found)
+    and written by its ``save`` loads in the port, and applies to within
+    1e-11 relative of the JAX pair apply (``_apply_df32`` under
+    ``disable_jit``)."""
+    order, elements, hi, lo, found, fields = pair_state
+    jop = JOp(elements=elements, order=order, refs=hi, found=found,
+              refs_lo=lo)
+    jop.save(tmp_path)
+    with jax.disable_jit():
+        want = np.asarray(jop._apply_df32(jnp.asarray(fields),
+                                          jnp.asarray(elements), 1 << 20)[0])
+    op = TOp.load(tmp_path, device="cpu")
+    assert op.refs_lo is not None
+    got = op.apply(torch.from_numpy(fields)).numpy()
+    assert (got[elements < 0] == 0).all()
+    scale = np.maximum(np.abs(want), 1e-12)
+    assert np.max(np.abs(got - want) / scale) < 1e-11
+
+
+def test_port_df32_operator_loads_in_jax(pair_state, tmp_path):
+    """An operator made by the port's ``from_numpy(..., refs_lo=...)`` and
+    written by its ``save`` loads in the JAX package with the same pair,
+    whose f64 weights equal the port's."""
+    order, elements, hi, lo, found, fields = pair_state
+    op = TOp.from_numpy(elements, hi, found, order, refs_lo=lo,
+                        device="cpu")
+    op.save(tmp_path)
+    jop = JOp.load(tmp_path)
+    np.testing.assert_array_equal(np.asarray(jop.refs_lo), lo)
+    np.testing.assert_array_equal(np.asarray(jop.refs), hi)
+    np.testing.assert_allclose(np.asarray(jop.weights), op.weights.numpy(),
+                               rtol=0, atol=1e-15)
+
+
+def test_scan_locate_result_applies_as_the_ladder(slice_case, torch_op):
+    """An operator made from ``locate(strategy="scan", prefilter_m=4)``
+    (as the scan's callers make it) accepts every interior row, with
+    elements as the ladder-built operator's on >= 99.9% of rows (both
+    accept first in distance order) and values to rtol 1e-5 on all."""
+    mesh, pts, fields = slice_case
+    res = tlocate.locate(pts[:512], mesh.points, ORDER, fallback="snap",
+                         prefilter_m=4, strategy="scan", want_weights=False,
+                         device="cpu")
+    assert res.n_retry == 0 and res.accepted.all()
+    op = TOp(res.elements, ORDER, res.refs, res.found)
+    agree = (op.elements == torch_op.elements[:512]).double().mean()
+    assert float(agree) >= 0.999
+    f = torch.from_numpy(fields)
+    np.testing.assert_allclose(op.apply(f).numpy(),
+                               torch_op.apply(f)[:512].numpy(), rtol=1e-5)
