@@ -31,9 +31,12 @@ each on stdout:
    through ``strategy="scan"`` and its trilinear prefilter (K1 at order
    1).
 
-Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Any failed check raises: the script exits non-zero and prints no
-``ok`` line, as it does without a CUDA device.
+Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
+twin's, its bound -- see ``bound`` -- and its launches in the df32
+slice's run; K1's time includes its grouping pre-pass, also timed
+alone as ``group_ms``) and, last, the ``{"ok": true, ...}`` line.  Any
+failed check raises: the script exits non-zero and prints no ``ok``
+line, as it does without a CUDA device.
 
     python3 chip_smoke.py --profile
 
@@ -70,6 +73,15 @@ DF32_CFG = dataclasses.replace(SLICE_CFG, df32_polish=True)
 FLAGSHIP_CFG = dataclasses.replace(DF32_CFG, accept_tol=1.04)
 FLAGSHIP_KW = dict(fallback="fixed_ref", use_aabb=True, prefilter_m=4)
 N_SCAN = 1_000_000  # targets of the strategy="scan" run
+# published peaks of one H100 SXM (NVIDIA's data sheet; at 700 W): f32 and
+# f64 outside the tensor cores, HBM3
+PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
+# the kernels of csrc/ (K1 with its grouping pre-pass, K2, K4, K5),
+# listed by --profile whatever their rank
+PORT_KERNELS = ("newton_rows_kernel", "group_count_kernel",
+                "group_scan_kernel", "group_scatter_kernel",
+                "nearest_centroid_kernel", "polish_pairs_kernel",
+                "apply_pairs_kernel")
 
 
 def emit(obj):
@@ -115,6 +127,35 @@ def cuda_ms(fn, reps):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(flop, peak, nbytes):
+    """The least time the card could take for a call: the larger of its
+    operations over the peak rate of their type and its bytes (each input
+    read once, each output written once) over the memory rate, as
+    (bound_ms, "operations" | "bytes")."""
+    op_ms, byte_ms = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def newton_bound(args, refs, res):
+    """K1's bound: per row, ``iters`` sum-factorised evaluations of x and
+    J and one of x for the residual, counting their FMAs (2 FLOP each) --
+    the 1-D bases and the solve, under a tenth of the work, are left out,
+    so this is a slight underestimate -- in f32."""
+    points, ids, ctr, inv_scale, nodes, order, dim, iters, _ = args
+    n = order + 1
+    if dim == 3:
+        jac, val = 6 * n**3 + 9 * n**2 + 12 * n, 3 * n**3 + 3 * n**2 + 3 * n
+    else:
+        jac, val = 4 * n**2 + 6 * n, 2 * n**2 + 2 * n
+    flop = 2 * (iters * jac + val) * points.shape[0]
+    return bound(flop, PEAK_F32, nbytes(points, ids, ctr, inv_scale, nodes,
+                                        refs, res))
 
 
 def phase_device():
@@ -168,17 +209,24 @@ def phase_nearest(dev, centroids, queries):
     plain_ms = cuda_ms(
         lambda: nearest.nearest_centroid_ref(queries, centroids), 5)
     rel = float(((dk - dp).abs() / dp.clamp_min(1.0)).max())
-    emit({"phase": "K2", "rows": queries.shape[0],
-          "sources": centroids.shape[0], "identical": same,
+    C, d = queries.shape
+    E = centroids.shape[0]
+    # d FMAs a (query, centroid) pair, f32; f64 inputs, int32 picks
+    bound_ms, bound_by = bound(2 * d * C * E, PEAK_F32,
+                               nbytes(queries, centroids, k_idx))
+    emit({"phase": "K2", "rows": C, "sources": E, "identical": same,
           "max_rel_d2_diff": rel, "band_m2": band, "ms": ms,
-          "plain_ms": plain_ms})
+          "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_share": bound_ms / ms})
     return {"name": "nearest_centroid", "route": "cuda",
             "source": "multimesh_tpu_torch/csrc/nearest_centroid.cu",
             "replaces": "multimesh_tpu/search/pallas_argmin.py:68",
             # metres between the distances to the two picks
             "max_abs_err": float((dk.sqrt() - dp.sqrt()).abs().max()),
-            "ms": ms,
-            "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # cdist + argmin is two calls; no single one picks the nearest
+            "library_ms": None}
 
 
 def _newton_rows(mesh, pts, dev, seed):
@@ -259,13 +307,21 @@ def phase_newton(dev, gll_mesh, gll_pts):
               f"differ by {near:.3g} > 1e-4")
         if i == 0:
             ms = cuda_ms(lambda: newton.newton_rows(*args), 10)
+            group_ms = cuda_ms(
+                lambda: newton.group_rows(args[1], mesh.nelem), 10)
             plain_ms = cuda_ms(lambda: newton.newton_refs_rows_ref(*args), 3)
+            bound_ms, bound_by = newton_bound(args, k_ref, k_res)
             emit({"phase": "K1 time", "order_dim": tag, "rows": ROWS,
-                  "ms": ms, "plain_ms": plain_ms})
+                  "ms": ms, "group_ms": group_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_share": bound_ms / ms})
             entry = {"name": "newton_rows", "route": "cuda",
                      "source": "multimesh_tpu_torch/csrc/newton_rows.cu",
                      "replaces": "multimesh_tpu/search/pallas_newton.py:261",
-                     "max_abs_err": err_acc, "ms": ms, "plain_ms": plain_ms}
+                     "max_abs_err": err_acc, "ms": ms, "group_ms": group_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     # no PyTorch call inverts a GLL map
+                     "library_ms": None}
             entry.update(_prefilter_time(dev, mesh, args))
     return entry, solved
 
@@ -313,12 +369,16 @@ def _prefilter_time(dev, mesh, args):
     clear = (ranked[:, m] - ranked[:, m - 1]).nan_to_num(0.0) > 1e-5
     kept_agree = float((k_kept == p_kept).all(dim=1)[clear].double().mean())
     ms = cuda_ms(lambda: newton.newton_rows(*pre), 10)
+    group_ms = cuda_ms(lambda: newton.group_rows(pre[1], mesh.nelem), 10)
     plain_ms = cuda_ms(lambda: newton.newton_refs_rows_ref(*pre), 3)
+    bound_ms, bound_by = newton_bound(pre, k_ref, k_res)
     emit({"phase": "K1 time", "order_dim": "1/3 prefilter",
           "rows": int(cand.numel()), "conv_agree": conv_agree,
           "max_abs_err_converged": err, "kept_clear_rows": float(
               clear.double().mean()), "kept_agree_clear": kept_agree,
-          "kept_max_score_diff": score_err, "ms": ms, "plain_ms": plain_ms})
+          "kept_max_score_diff": score_err, "ms": ms, "group_ms": group_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_share": bound_ms / ms})
     check(conv_agree >= 0.9999, f"K1 prefilter convergence agreement "
           f"{conv_agree:.6f} < 0.9999")
     check(err <= 1e-5, f"K1 prefilter converged refs differ by {err:.3g} "
@@ -327,7 +387,8 @@ def _prefilter_time(dev, mesh, args):
           f"prefilter kept columns score differently ({score_err:.3g})")
     check(kept_agree >= 0.999, f"prefilter kept columns agree on "
           f"{kept_agree:.6f} < 0.999 of the untied rows")
-    return {"ms_order1": ms, "plain_ms_order1": plain_ms}
+    return {"ms_order1": ms, "group_ms_order1": group_ms,
+            "plain_ms_order1": plain_ms, "bound_ms_order1": bound_ms}
 
 
 def phase_polish(dev, solved):
@@ -375,11 +436,23 @@ def phase_polish(dev, solved):
             rec["ms"] = cuda_ms(lambda: polish.polish_pairs(*pargs), 20)
             rec["plain_ms"] = cuda_ms(
                 lambda: polish.polish_pairs_ref(*pargs), 3)
+            # per row and step, each lattice node: d + 1 weight products
+            # and d (d + 1) FMAs for x and J, in f64 (bases and solve
+            # left out)
+            nn = (order + 1) ** dim
+            flop = (pargs[8] * nn * (2 * dim * (dim + 1) + dim + 1)
+                    * pargs[0].shape[0])
+            bound_ms, bound_by = bound(flop, PEAK_F64,
+                                       nbytes(*pargs[:6], hi, lo, ok))
+            rec.update(bound_ms=bound_ms, bound_share=bound_ms / rec["ms"])
             entry = {"name": "polish_pairs", "route": "cuda",
                      "source": "multimesh_tpu_torch/csrc/polish_pairs.cu",
                      "replaces": "multimesh_tpu/search/pallas_df32.py:318",
                      "max_abs_err": diff, "ms": rec["ms"],
-                     "plain_ms": rec["plain_ms"]}
+                     "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     # no PyTorch call takes a Newton step of a GLL map
+                     "library_ms": None}
         emit(rec)
         check(ok_agree >= 0.9999, f"K4 {tag} ok agreement {ok_agree:.6f}")
         check(diff <= 1e-11, f"K4 {tag} hi+lo differ by {diff:.3g}")
@@ -407,16 +480,24 @@ def phase_apply(dev, src, fields):
     zeros = bool((got[el < 0] == 0).all())
     ms = cuda_ms(lambda: polish.apply_pairs(*args), 20)
     plain_ms = cuda_ms(lambda: polish.apply_pairs_ref(*args), 3)
+    # per row, parameter and lattice node: a weight product and an FMA,
+    # in f64 (the 1-D bases left out)
+    flop = 3 * ROWS * fields.shape[0] * (src.order + 1) ** 3
+    bound_ms, bound_by = bound(flop, PEAK_F64,
+                               nbytes(hi, lo, el, fields, got))
     emit({"phase": "K5", "rows": ROWS, "params": 3, "order_dim": "4/3",
           "max_rel_diff": rel, "missing_rows_zero": zeros, "ms": ms,
-          "plain_ms": plain_ms})
+          "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_share": bound_ms / ms})
     check(rel <= 1e-12, f"K5 values differ by {rel:.3g} relative")
     check(zeros, "K5 element -1 did not give 0")
     return {"name": "apply_pairs", "route": "cuda",
             "source": "multimesh_tpu_torch/csrc/apply_pairs.cu",
             "replaces": "multimesh_tpu/search/pallas_df32.py:407",
             "max_abs_err": float((got - want).abs().max()), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # a gather and an einsum at least: no single call
+            "library_ms": None}
 
 
 def run_scan(src, targets, dev):
@@ -619,8 +700,8 @@ def profile(dev, src, pts_d, fields, targets):
     warm-up, three timed warm walls and one run under ``torch.profiler``;
     one JSON line each with the walls, the device time of all kernels of
     the profiled run, the busy share (that device time over the mean warm
-    wall) and the eight kernels with the most device time (name, ms,
-    launches)."""
+    wall), the eight kernels with the most device time and every kernel
+    of ``PORT_KERNELS`` (name, ms, launches)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -655,10 +736,13 @@ def profile(dev, src, pts_d, fields, targets):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        port = [e for e in kernels if any(k in e.key for k in PORT_KERNELS)]
         emit({"profile": name, "walls_s": walls, "device_ms": device_ms,
               "busy": device_ms / (1e3 * sum(walls) / len(walls)),
               "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                      for e in top]})
+                      for e in top],
+              "port": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                       for e in port]})
 
 
 def main():

@@ -2,12 +2,13 @@
 
 Every ``csrc/*.cu`` file exposes a plain C entry point (pointers, sizes
 and the CUDA stream as arguments, the launch's ``cudaError_t`` as the
-return value), so one ``nvcc`` call compiles all of them into a single
-shared library in seconds -- no PyTorch headers are involved; the
-``csrc/*.cuh`` headers they include are shared device code.  The
-library lands in ``_build/`` next to this file, named by a hash of the
-sources, headers and flags: an edit to any of them rebuilds it on first
-use, and an unchanged tree reuses it.
+return value), so no PyTorch headers are involved; the ``csrc/*.cuh``
+headers they include are shared device code.  One ``nvcc`` per source
+compiles them all at once, in parallel, and one more links the objects
+into a single shared library.  The library lands in ``_build/`` next to
+this file, named by a hash of the sources, headers and flags: an edit
+to any of them rebuilds it on first use, and an unchanged tree reuses
+it.
 
 Nothing here falls back: a missing ``nvcc`` or a failed compile raises.
 """
@@ -26,7 +27,7 @@ BUILD_DIR = _HERE / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -34,12 +35,14 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
 # entry point -> argtypes (restype is int: the cudaError_t of the launch)
 _SIGNATURES = {
-    # points, ids, ctr, inv_scale, nodes, M, E, order, dim, iters, clamp,
-    # refs, res, stream
-    "mmt_newton_rows": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
-                        _F32, _P, _P, _P),
-    # queries, centroids, C, E, dim, out, stream
-    "mmt_nearest_centroid": (_P, _P, _I64, _I64, _I32, _P, _P),
+    # points, ids, perm, ctr, inv_scale, nodes, M, E, order, dim, iters,
+    # clamp, refs, res, stream
+    "mmt_newton_rows": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                        _I32, _F32, _P, _P, _P),
+    # ids, M, E, counts, perm, stream
+    "mmt_group_rows": (_P, _I64, _I64, _P, _P, _P),
+    # queries, centroids, center, C, E, dim, out, stream
+    "mmt_nearest_centroid": (_P, _P, _P, _I64, _I64, _I32, _P, _P),
     # points, ids, ref0, ctr, inv_scale, nodes64, M, E, order, dim, iters,
     # ref_hi, ref_lo, ok, stream
     "mmt_polish_pairs": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
@@ -85,17 +88,29 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    # private temporary name, then an atomic rename: concurrent builders
+    # private temporary names, then an atomic rename: concurrent builders
     # (several test processes) never load a half-written library
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(SOURCE_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    sources = sorted(SOURCE_DIR.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        failed = [link.returncode] if link.returncode != 0 else []
+    build_log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{build_log}")
+        raise RuntimeError(f"nvcc failed with code {failed[0]}:\n{build_log}")
     os.replace(tmp, out)
     return out
 

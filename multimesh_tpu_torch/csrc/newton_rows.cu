@@ -1,10 +1,12 @@
 // K1: fixed Newton inversion of the order-p tensor GLL map over
-// (point, element) rows, one thread per row.
+// (point, element) rows grouped by element, one thread per row, the
+// block's element lattices staged in shared memory.
 //
 // Replaces the Pallas TPU kernels of the JAX package, search/pallas_newton.py
 // :: newton_refs_rows (K1, every round of the locate ladder) and
 // :: newton_refs (K3, the scan retry of crowded-out rows, which calls this
-// kernel once per candidate column).
+// kernel once per candidate column, and the trilinear prefilter, which
+// calls it at order 1 on the element corners).
 //
 // Contract, as the TPU kernel's: the point is centred and scaled into the
 // element's unit frame, p_c = (p - ctr[e]) * inv_scale[e] (here in f64,
@@ -16,23 +18,49 @@
 // residual at the last iterate.  An out-of-range element id writes NaN
 // refs and residual (never converged) instead of reading out of bounds.
 //
-// What bounds it on Hopper: the reads of the lattice rows.  Each step
-// re-reads the row's (p+1)^d * d floats (1.5 KB at order 4 in 3-D), so a
-// row moves ~28 KB over 19 map evaluations against ~19 x 2,000 FMAs; the
-// lattice of the main path (E = 4,096 elements, 6 MB) sits in L2 and the
-// row being solved mostly in L1.  Design choices: the lattice is gathered
-// by element id inside the kernel (no [M, n*d] gather in device memory,
-// as the TPU path materialises); the 1-D Lagrange values and derivatives
-// use the product form with the GLL nodes and barycentric weights as
-// compile-time constants; the node loop keeps its outer axis rolled so the
-// order-4 body stays far from the 255-register ceiling.  Lattice staging
-// in shared memory (rows of one block share few elements) is left for a
-// later change.
+// Rows are visited in the order `perm` gives; thread t of block b solves
+// row perm[b * 128 + t] and writes its refs and residual back at that
+// row, so the caller's order is kept and no gathered copy of the points
+// is made.  Any permutation gives the same results, bit for bit; grouping
+// only makes them cheap.  mmt_group_rows builds the grouping permutation
+// with a counting sort over E + 1 bins (bin E takes every out-of-range
+// id): a histogram, an exclusive scan, a scatter, with one atomic per
+// run of equal ids in a warp (so rows already grouped do not queue on one
+// address); the order of rows inside a bin is whatever the atomics give.
+//
+// What bounds it on Hopper: FMA issue.  Grouped, the 128 rows of a block
+// share a few elements (~3 in the ladder's first round: 64 rows per
+// element on average), so the block copies those lattices once into
+// shared memory, coalesced (4-byte loads: an element's lattice row, 1,500
+// bytes at order 4, 3-D, is not 16-byte aligned), as one float4 (float2
+// in 2-D) per node, and every node read in the solve is a warp-uniform
+// LDS.128 broadcast instead of three scattered 4-byte L1/L2 reads per
+// row.  A row whose element found no slot (more than kSlots distinct
+// elements in a block, as in sparse rescue rounds or an ungrouped order)
+// reads its lattice from global memory with the same arithmetic, so its
+// results are bit for bit those of a slot.  The map and Jacobian are
+// evaluated by sum factorisation -- over k: A = sum l2 v, B = sum dl2 v
+// per (i, j, a);
+// over j: AA, AB, BA; over i: x and J -- 1,035 FMAs a step at order 4,
+// 3-D where the direct form takes ~2,000; the 1-D Lagrange values and
+// derivatives come from prefix and suffix products, with the GLL nodes
+// and barycentric weights as compile-time constants.  The outer node
+// axis stays rolled, so the order-4 body stays far from the 255-register
+// ceiling.  Bytes are not the limit: a 262,144-row launch moves ~18 MB.
+// At order 1 (8 nodes, the scan's prefilter) the arithmetic is small and
+// the rows' own reads and writes, at scattered rows once grouped, and the
+// counting sort's atomics take most of the time instead.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlotBytes = 32768;  // shared memory for staged lattices
 
 // GLL nodes x_i and barycentric weights w_i = 1 / prod_{j != i}(x_i - x_j)
 // (multimesh_tpu_torch/core/gll.py), as f32 like the TPU kernel's tables.
@@ -77,34 +105,39 @@ template <> struct Gll<4> {
   }
 };
 
-// Cardinal values l_i(t) and derivatives l_i'(t), product form (the TPU
-// kernel's _eval_lagrange), fully unrolled.
+// Cardinal values l_i(t) = w_i P_i S_i and derivatives l_i'(t), from the
+// prefix products P_i = prod_{j<i}(t - x_j), the suffix products
+// S_i = prod_{j>i}(t - x_j) and their derivatives, fully unrolled.
 template <int ORDER>
 __device__ __forceinline__ void lagrange(float t, float (&l)[ORDER + 1],
                                          float (&dl)[ORDER + 1]) {
   constexpr int N1 = ORDER + 1;
-  float diff[N1];
+  float d[N1], P[N1], dP[N1], S[N1], dS[N1];
 #pragma unroll
-  for (int j = 0; j < N1; ++j) diff[j] = t - Gll<ORDER>::x(j);
+  for (int j = 0; j < N1; ++j) d[j] = t - Gll<ORDER>::x(j);
+  P[1] = d[0];
+  dP[1] = 1.0f;
 #pragma unroll
-  for (int i = 0; i < N1; ++i) {
-    float prod = 1.0f;
-#pragma unroll
-    for (int j = 0; j < N1; ++j)
-      if (j != i) prod *= diff[j];
-    l[i] = Gll<ORDER>::w(i) * prod;
-    float total = 0.0f;
-#pragma unroll
-    for (int k = 0; k < N1; ++k) {
-      if (k == i) continue;
-      float term = 1.0f;
-#pragma unroll
-      for (int j = 0; j < N1; ++j)
-        if (j != i && j != k) term *= diff[j];
-      total += term;
-    }
-    dl[i] = Gll<ORDER>::w(i) * total;
+  for (int i = 2; i < N1; ++i) {
+    P[i] = P[i - 1] * d[i - 1];
+    dP[i] = fmaf(dP[i - 1], d[i - 1], P[i - 1]);
   }
+  S[N1 - 2] = d[N1 - 1];
+  dS[N1 - 2] = 1.0f;
+#pragma unroll
+  for (int i = N1 - 3; i >= 0; --i) {
+    S[i] = S[i + 1] * d[i + 1];
+    dS[i] = fmaf(dS[i + 1], d[i + 1], S[i + 1]);
+  }
+  l[0] = Gll<ORDER>::w(0) * S[0];
+  dl[0] = Gll<ORDER>::w(0) * dS[0];
+#pragma unroll
+  for (int i = 1; i < N1 - 1; ++i) {
+    l[i] = Gll<ORDER>::w(i) * (P[i] * S[i]);
+    dl[i] = Gll<ORDER>::w(i) * fmaf(dP[i], S[i], P[i] * dS[i]);
+  }
+  l[N1 - 1] = Gll<ORDER>::w(N1 - 1) * P[N1 - 1];
+  dl[N1 - 1] = Gll<ORDER>::w(N1 - 1) * dP[N1 - 1];
 }
 
 // a[i] for a runtime i without spilling the register array to local memory
@@ -117,10 +150,47 @@ __device__ __forceinline__ float pick(const float (&a)[N], int i) {
   return v;
 }
 
-// x(ref) and, with JAC, J[a][b] = dx_a/dref_b over all lattice nodes of
-// the row nd (layout m * DIM + a, canonical row-major node order).
-template <int ORDER, int DIM, bool JAC>
-__device__ __forceinline__ void eval_map(const float* __restrict__ nd,
+// One node per float4 (x, y, z, unused) in 3-D, per float2 in 2-D.
+template <int ORDER, int DIM> struct Shape {
+  static constexpr int N1 = ORDER + 1;
+  static constexpr int kNodes = DIM == 3 ? N1 * N1 * N1 : N1 * N1;
+  using Vec = std::conditional_t<DIM == 3, float4, float2>;
+  static constexpr int kSlots =
+      kSlotBytes / (kNodes * (int)sizeof(Vec)) < kThreads
+          ? kSlotBytes / (kNodes * (int)sizeof(Vec))
+          : kThreads;
+};
+
+// A lattice staged in shared memory: one wide load per node.
+template <int DIM> struct SharedLattice {
+  const std::conditional_t<DIM == 3, float4, float2>* p;
+  __device__ __forceinline__ void node(int m, float (&v)[DIM]) const {
+    if constexpr (DIM == 3) {
+      const float4 q = p[m];
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+    } else {
+      const float2 q = p[m];
+      v[0] = q.x;
+      v[1] = q.y;
+    }
+  }
+};
+
+// A lattice row in global memory (layout m * DIM + a).
+template <int DIM> struct GlobalLattice {
+  const float* __restrict__ p;
+  __device__ __forceinline__ void node(int m, float (&v)[DIM]) const {
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) v[a] = __ldg(p + m * DIM + a);
+  }
+};
+
+// x(ref) and, with JAC, J[a][b] = dx_a/dref_b over all lattice nodes
+// (canonical row-major node order, axis 0 outermost), sum-factorised.
+template <int ORDER, int DIM, bool JAC, class Lattice>
+__device__ __forceinline__ void eval_map(const Lattice& lat,
                                          const float (&l)[DIM][ORDER + 1],
                                          const float (&dl)[DIM][ORDER + 1],
                                          float (&x)[DIM],
@@ -136,88 +206,81 @@ __device__ __forceinline__ void eval_map(const float* __restrict__ nd,
   for (int i = 0; i < N1; ++i) {
     const float l0 = pick(l[0], i);
     const float d0 = pick(dl[0], i);
+    // A over the last axis (3-D: then folded over j), per coordinate a
+    float AA[DIM], AB[DIM], BA[DIM];
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) AA[a] = AB[a] = BA[a] = 0.0f;
     if constexpr (DIM == 3) {
 #pragma unroll
       for (int j = 0; j < N1; ++j) {
-        const float l01 = l0 * l[1][j];
-        const float d0l1 = d0 * l[1][j];
-        const float l0d1 = l0 * dl[1][j];
+        float A[3], B[3];
 #pragma unroll
         for (int k = 0; k < N1; ++k) {
-          const float* v = nd + ((i * N1 + j) * N1 + k) * 3;
-          const float N = l01 * l[2][k];
+          float v[3];
+          lat.node((i * N1 + j) * N1 + k, v);
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
-            const float va = __ldg(v + a);
-            x[a] = fmaf(N, va, x[a]);
-            if constexpr (JAC) {
-              J[a][0] = fmaf(d0l1 * l[2][k], va, J[a][0]);
-              J[a][1] = fmaf(l0d1 * l[2][k], va, J[a][1]);
-              J[a][2] = fmaf(l01 * dl[2][k], va, J[a][2]);
-            }
+            A[a] = k == 0 ? l[2][0] * v[a] : fmaf(l[2][k], v[a], A[a]);
+            if constexpr (JAC)
+              B[a] = k == 0 ? dl[2][0] * v[a] : fmaf(dl[2][k], v[a], B[a]);
           }
+        }
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          AA[a] = fmaf(l[1][j], A[a], AA[a]);
+          if constexpr (JAC) {
+            AB[a] = fmaf(l[1][j], B[a], AB[a]);
+            BA[a] = fmaf(dl[1][j], A[a], BA[a]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        x[a] = fmaf(l0, AA[a], x[a]);
+        if constexpr (JAC) {
+          J[a][0] = fmaf(d0, AA[a], J[a][0]);
+          J[a][1] = fmaf(l0, BA[a], J[a][1]);
+          J[a][2] = fmaf(l0, AB[a], J[a][2]);
         }
       }
     } else {
 #pragma unroll
       for (int j = 0; j < N1; ++j) {
-        const float* v = nd + (i * N1 + j) * 2;
-        const float N = l0 * l[1][j];
+        float v[2];
+        lat.node(i * N1 + j, v);
 #pragma unroll
         for (int a = 0; a < 2; ++a) {
-          const float va = __ldg(v + a);
-          x[a] = fmaf(N, va, x[a]);
-          if constexpr (JAC) {
-            J[a][0] = fmaf(d0 * l[1][j], va, J[a][0]);
-            J[a][1] = fmaf(l0 * dl[1][j], va, J[a][1]);
-          }
+          AA[a] = fmaf(l[1][j], v[a], AA[a]);
+          if constexpr (JAC) AB[a] = fmaf(dl[1][j], v[a], AB[a]);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        x[a] = fmaf(l0, AA[a], x[a]);
+        if constexpr (JAC) {
+          J[a][0] = fmaf(d0, AA[a], J[a][0]);
+          J[a][1] = fmaf(l0, AB[a], J[a][1]);
         }
       }
     }
   }
 }
 
-template <int ORDER, int DIM>
-__device__ __forceinline__ void basis_1d(const float (&ref)[DIM],
-                                         float (&l)[DIM][ORDER + 1],
-                                         float (&dl)[DIM][ORDER + 1]) {
-#pragma unroll
-  for (int a = 0; a < DIM; ++a) lagrange<ORDER>(ref[a], l[a], dl[a]);
-}
-
-template <int ORDER, int DIM>
-__global__ void __launch_bounds__(128)
-newton_rows_kernel(const double* __restrict__ points,
-                   const int* __restrict__ ids,
-                   const double* __restrict__ ctr,
-                   const double* __restrict__ inv_scale,
-                   const float* __restrict__ nodes, int64_t M, int64_t E,
-                   int iters, float clamp, float* __restrict__ refs,
-                   float* __restrict__ res) {
+// `iters` Newton steps from ref = 0 for the unit-frame point p, then the
+// max-abs residual at the last iterate.
+template <int ORDER, int DIM, class Lattice>
+__device__ __forceinline__ void solve(const Lattice& lat,
+                                      const float (&p)[DIM], int iters,
+                                      float clamp, float (&ref)[DIM],
+                                      float& r_max) {
   constexpr int N1 = ORDER + 1;
-  constexpr int NN = DIM == 3 ? N1 * N1 * N1 : N1 * N1;
-  const int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (row >= M) return;
-  const int e = ids[row];
-  if (e < 0 || e >= E) {
-#pragma unroll
-    for (int a = 0; a < DIM; ++a) refs[row * DIM + a] = NAN;
-    res[row] = NAN;
-    return;
-  }
-  const float* nd = nodes + (int64_t)e * (NN * DIM);
-  const double s = inv_scale[e];
-  float p[DIM], ref[DIM];
-#pragma unroll
-  for (int a = 0; a < DIM; ++a) {
-    p[a] = (float)((points[row * DIM + a] - ctr[(int64_t)e * DIM + a]) * s);
-    ref[a] = 0.0f;
-  }
-
   float l[DIM][N1], dl[DIM][N1], x[DIM], J[DIM][DIM];
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) ref[a] = 0.0f;
   for (int it = 0; it < iters; ++it) {
-    basis_1d<ORDER, DIM>(ref, l, dl);
-    eval_map<ORDER, DIM, true>(nd, l, dl, x, J);
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) lagrange<ORDER>(ref[a], l[a], dl[a]);
+    eval_map<ORDER, DIM, true>(lat, l, dl, x, J);
     float r[DIM], step[DIM];
 #pragma unroll
     for (int a = 0; a < DIM; ++a) r[a] = p[a] - x[a];
@@ -250,57 +313,234 @@ newton_rows_kernel(const double* __restrict__ points,
   }
 
   // residual at the last iterate, in the unit-element frame
-  basis_1d<ORDER, DIM>(ref, l, dl);
-  eval_map<ORDER, DIM, false>(nd, l, dl, x, J);
-  float r_max = 0.0f;
 #pragma unroll
-  for (int a = 0; a < DIM; ++a) {
-    r_max = fmaxf(r_max, fabsf(p[a] - x[a]));
-    refs[row * DIM + a] = ref[a];
-  }
-  res[row] = r_max;
+  for (int a = 0; a < DIM; ++a) lagrange<ORDER>(ref[a], l[a], dl[a]);
+  eval_map<ORDER, DIM, false>(lat, l, dl, x, J);
+  r_max = 0.0f;
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) r_max = fmaxf(r_max, fabsf(p[a] - x[a]));
 }
 
 template <int ORDER, int DIM>
-cudaError_t launch(const void* points, const void* ids, const void* ctr,
-                   const void* inv_scale, const void* nodes, int64_t M,
-                   int64_t E, int iters, float clamp, void* refs, void* res,
-                   cudaStream_t stream) {
-  constexpr int kThreads = 128;
+__global__ void __launch_bounds__(kThreads, 3)
+newton_rows_kernel(const double* __restrict__ points,
+                   const int* __restrict__ ids,
+                   const int* __restrict__ perm,
+                   const double* __restrict__ ctr,
+                   const double* __restrict__ inv_scale,
+                   const float* __restrict__ nodes, int64_t M, int64_t E,
+                   int iters, float clamp, float* __restrict__ refs,
+                   float* __restrict__ res) {
+  using Sh = Shape<ORDER, DIM>;
+  using Vec = typename Sh::Vec;
+  constexpr int NN = Sh::kNodes;
+  constexpr int kSlots = Sh::kSlots;
+  __shared__ Vec lat[kSlots * NN];
+  __shared__ int row_elem[kThreads];
+  __shared__ int slot_elem[kSlots];
+  __shared__ int warp_runs[kWarps];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int64_t pos = blockIdx.x * (int64_t)kThreads + t;
+  int64_t row = 0;
+  int e = -1;
+  if (pos < M) {
+    row = perm[pos];
+    e = ids[row];
+  }
+  const bool ok = pos < M && e >= 0 && e < E;
+
+  // Runs of equal elements among the block's rows; run r takes slot r.
+  row_elem[t] = ok ? e : -1;
+  __syncthreads();
+  const bool start = ok && (t == 0 || row_elem[t - 1] != e);
+  const unsigned starts = __ballot_sync(0xffffffffu, start);
+  if (lane == 0) warp_runs[warp] = __popc(starts);
+  __syncthreads();
+  int runs = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? warp_runs[w] : 0;
+    runs += warp_runs[w];
+  }
+  // (2u << lane) - 1: the lanes up to and including this one
+  const int slot = before + __popc(starts & ((2u << lane) - 1u)) - 1;
+  if (start && slot < kSlots) slot_elem[slot] = e;
+  __syncthreads();
+
+  // Stage the slotted lattices: consecutive threads read consecutive
+  // floats of an element's row (coalesced) into its node vectors.
+  const int staged = runs < kSlots ? runs : kSlots;
+  for (int q = t; q < staged * NN * DIM; q += kThreads) {
+    const int s = q / (NN * DIM);
+    const int r = q - s * (NN * DIM);
+    const int m = r / DIM;
+    const float v = __ldg(nodes + (int64_t)slot_elem[s] * (NN * DIM) + r);
+    reinterpret_cast<float*>(&lat[s * NN + m])[r - m * DIM] = v;
+  }
+  __syncthreads();
+
+  if (pos >= M) return;
+  if (!ok) {
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) refs[row * DIM + a] = NAN;
+    res[row] = NAN;
+    return;
+  }
+  const double sc = inv_scale[e];
+  float p[DIM], ref[DIM], r_max;
+#pragma unroll
+  for (int a = 0; a < DIM; ++a)
+    p[a] = (float)((points[row * DIM + a] - ctr[(int64_t)e * DIM + a]) * sc);
+  if (slot < kSlots) {
+    solve<ORDER, DIM>(SharedLattice<DIM>{lat + slot * NN}, p, iters, clamp,
+                      ref, r_max);
+  } else {
+    solve<ORDER, DIM>(GlobalLattice<DIM>{nodes + (int64_t)e * (NN * DIM)},
+                      p, iters, clamp, ref, r_max);
+  }
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) refs[row * DIM + a] = ref[a];
+  res[row] = r_max;
+}
+
+// ---- grouping pre-pass: counting sort of the rows by element id -----------
+
+__device__ __forceinline__ int bin_of(int e, int E) {
+  return e >= 0 && e < E ? e : E;
+}
+
+// counts[bin] += rows of the bin
+__global__ void __launch_bounds__(256)
+group_count_kernel(const int* __restrict__ ids, int M, int E,
+                   int* __restrict__ counts) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = row < M;
+  const unsigned active = __ballot_sync(0xffffffffu, in);
+  if (!in) return;
+  const int b = bin_of(ids[row], E);
+  const unsigned peers = __match_any_sync(active, b);  // lanes of bin b
+  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(counts + b, __popc(peers));
+}
+
+// counts[0..n) -> their exclusive prefix sums, in place, by one block
+__global__ void __launch_bounds__(1024)
+group_scan_kernel(int* __restrict__ counts, int n) {
+  __shared__ int warp_sums[32];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int per = (n + 1023) / 1024;
+  const int lo = t * per < n ? t * per : n;
+  const int hi = lo + per < n ? lo + per : n;
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += counts[i];
+  int x = sum;  // inclusive scan of the threads' sums, warp then block
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int v = warp_sums[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    warp_sums[lane] = v;
+  }
+  __syncthreads();
+  int run = x - sum + (warp > 0 ? warp_sums[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int c = counts[i];
+    counts[i] = run;
+    run += c;
+  }
+}
+
+// perm[cursor[bin]++] = row
+__global__ void __launch_bounds__(256)
+group_scatter_kernel(const int* __restrict__ ids, int M, int E,
+                     int* __restrict__ cursor, int* __restrict__ perm) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool in = row < M;
+  const unsigned active = __ballot_sync(0xffffffffu, in);
+  if (!in) return;
+  const int b = bin_of(ids[row], E);
+  const unsigned peers = __match_any_sync(active, b);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(cursor + b, __popc(peers));
+  base = __shfl_sync(peers, base, leader);
+  perm[base + __popc(peers & ((1u << lane) - 1u))] = row;
+}
+
+template <int ORDER, int DIM>
+cudaError_t launch(const void* points, const void* ids, const void* perm,
+                   const void* ctr, const void* inv_scale, const void* nodes,
+                   int64_t M, int64_t E, int iters, float clamp, void* refs,
+                   void* res, cudaStream_t stream) {
   const int64_t blocks = (M + kThreads - 1) / kThreads;
   newton_rows_kernel<ORDER, DIM><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const double*>(points), static_cast<const int*>(ids),
-      static_cast<const double*>(ctr), static_cast<const double*>(inv_scale),
-      static_cast<const float*>(nodes), M, E, iters, clamp,
-      static_cast<float*>(refs), static_cast<float*>(res));
+      static_cast<const int*>(perm), static_cast<const double*>(ctr),
+      static_cast<const double*>(inv_scale), static_cast<const float*>(nodes),
+      M, E, iters, clamp, static_cast<float*>(refs), static_cast<float*>(res));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int mmt_newton_rows(const void* points, const void* ids,
-                               const void* ctr, const void* inv_scale,
-                               const void* nodes, int64_t M, int64_t E,
-                               int order, int dim, int iters, float clamp,
-                               void* refs, void* res, void* stream) {
+                               const void* perm, const void* ctr,
+                               const void* inv_scale, const void* nodes,
+                               int64_t M, int64_t E, int order, int dim,
+                               int iters, float clamp, void* refs, void* res,
+                               void* stream) {
   if (M <= 0) return (int)cudaSuccess;
-  if (M > (int64_t)0x7fffffff * 128) return (int)cudaErrorInvalidValue;
+  if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (order * 10 + dim) {
-    case 12: return (int)launch<1, 2>(points, ids, ctr, inv_scale, nodes, M,
-                                      E, iters, clamp, refs, res, s);
-    case 13: return (int)launch<1, 3>(points, ids, ctr, inv_scale, nodes, M,
-                                      E, iters, clamp, refs, res, s);
-    case 22: return (int)launch<2, 2>(points, ids, ctr, inv_scale, nodes, M,
-                                      E, iters, clamp, refs, res, s);
-    case 23: return (int)launch<2, 3>(points, ids, ctr, inv_scale, nodes, M,
-                                      E, iters, clamp, refs, res, s);
-    case 42: return (int)launch<4, 2>(points, ids, ctr, inv_scale, nodes, M,
-                                      E, iters, clamp, refs, res, s);
-    case 43: return (int)launch<4, 3>(points, ids, ctr, inv_scale, nodes, M,
-                                      E, iters, clamp, refs, res, s);
+    case 12: return (int)launch<1, 2>(points, ids, perm, ctr, inv_scale,
+                                      nodes, M, E, iters, clamp, refs, res, s);
+    case 13: return (int)launch<1, 3>(points, ids, perm, ctr, inv_scale,
+                                      nodes, M, E, iters, clamp, refs, res, s);
+    case 22: return (int)launch<2, 2>(points, ids, perm, ctr, inv_scale,
+                                      nodes, M, E, iters, clamp, refs, res, s);
+    case 23: return (int)launch<2, 3>(points, ids, perm, ctr, inv_scale,
+                                      nodes, M, E, iters, clamp, refs, res, s);
+    case 42: return (int)launch<4, 2>(points, ids, perm, ctr, inv_scale,
+                                      nodes, M, E, iters, clamp, refs, res, s);
+    case 43: return (int)launch<4, 3>(points, ids, perm, ctr, inv_scale,
+                                      nodes, M, E, iters, clamp, refs, res, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int mmt_group_rows(const void* ids, int64_t M, int64_t E,
+                              void* counts, void* perm, void* stream) {
+  if (M <= 0) return (int)cudaSuccess;
+  if (M > 0x7fffffff || E < 0 || E >= 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* id = static_cast<const int*>(ids);
+  int* c = static_cast<int*>(counts);
+  const int m = (int)M, e = (int)E;
+  const unsigned blocks = (unsigned)((M + 255) / 256);
+  cudaError_t err = cudaMemsetAsync(c, 0, (E + 1) * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  group_count_kernel<<<blocks, 256, 0, s>>>(id, m, e, c);
+  group_scan_kernel<<<1, 1024, 0, s>>>(c, e + 1);
+  group_scatter_kernel<<<blocks, 256, 0, s>>>(id, m, e, c,
+                                              static_cast<int*>(perm));
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* mmt_error_string(int err) {

@@ -73,10 +73,14 @@ def nearest(queries, sources):
     out = torch.empty((C,), dtype=torch.int32, device=device)
     if C == 0:
         return out
-    q32, s32 = centre_jointly(queries, sources)
+    # the kernel centres as it loads (centre_jointly's f64 subtract and
+    # f32 cast), so only the centre is computed here
+    queries, sources = queries.contiguous(), sources.contiguous()
+    center = sources.mean(dim=0)
     lib = _build.library()
     err = lib.mmt_nearest_centroid(
-        q32.data_ptr(), s32.data_ptr(), C, s32.shape[0], d, out.data_ptr(),
+        queries.data_ptr(), sources.data_ptr(), center.data_ptr(), C,
+        sources.shape[0], d, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(lib, err, "nearest")

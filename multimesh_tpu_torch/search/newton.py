@@ -21,7 +21,10 @@ after ``iters`` steps from zero, and the max-abs residual at that iterate
 in the unit-element frame.
 
 ``newton_rows`` picks by the tensors' device: CPU tensors run the plain
-twin, CUDA tensors launch the kernel, any other device raises.
+twin, CUDA tensors launch the kernel, any other device raises.  On the
+card the rows are first grouped by element (``group_rows``), so a block
+of the kernel shares a few element lattices; the kernel writes each
+row's result back at its own position.
 """
 from __future__ import annotations
 
@@ -41,6 +44,37 @@ def newton_refs_rows_ref(points, ids, ctr, inv_scale, nodes, order: int,
     rows = nodes[ids].view(-1, (order + 1) ** dim, dim)
     return shape._newton_iterations(
         order, rows, p_c, torch.zeros_like(p_c), iters, clamp)
+
+
+def group_rows_ref(ids, E: int):
+    """Plain twin of the grouping pre-pass: the permutation [M] int32 that
+    orders the rows by element id, rows of one element in row order, the
+    rows whose id is out of range (< 0 or >= E) last."""
+    key = torch.where((ids >= 0) & (ids < E), ids, E)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+def group_rows(ids, E: int):
+    """The rows' grouping permutation [M] int32: ids non-decreasing under
+    it, out-of-range ids last.  CPU tensors run the twin; CUDA tensors
+    launch the counting sort of ``csrc/newton_rows.cu``, which leaves
+    the rows of one element in no particular order."""
+    device = ids.device
+    if device.type == "cpu":
+        return group_rows_ref(ids, E)
+    if device.type != "cuda":
+        raise ValueError(f"group_rows: unsupported device {device}")
+    if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError("group_rows: ids must be contiguous 1-D int32")
+    M = ids.shape[0]
+    perm = torch.empty((M,), dtype=torch.int32, device=device)
+    counts = torch.empty((E + 1,), dtype=torch.int32, device=device)
+    lib = _build.library()
+    err = lib.mmt_group_rows(ids.data_ptr(), M, E, counts.data_ptr(),
+                             perm.data_ptr(),
+                             torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, err, "group_rows")
+    return perm
 
 
 def _check_args(points, ids, ctr, inv_scale, nodes, order, dim):
@@ -72,7 +106,8 @@ def _check_args(points, ids, ctr, inv_scale, nodes, order, dim):
 def newton_rows(points, ids, ctr, inv_scale, nodes, order: int, dim: int,
                 iters: int, clamp: float):
     """Newton refs and residuals for M (point, element) rows (see module
-    docstring); CUDA tensors launch K1, CPU tensors run the twin."""
+    docstring); CUDA tensors launch K1 on the rows grouped by element,
+    CPU tensors run the twin."""
     _check_args(points, ids, ctr, inv_scale, nodes, order, dim)
     device = points.device
     if device.type == "cpu":
@@ -89,11 +124,13 @@ def newton_rows(points, ids, ctr, inv_scale, nodes, order: int, dim: int,
     res = torch.empty((M,), dtype=torch.float32, device=device)
     if M == 0:
         return refs, res
+    E = ctr.shape[0]
+    perm = group_rows(ids, E)
     lib = _build.library()
     err = lib.mmt_newton_rows(
-        points.data_ptr(), ids.data_ptr(), ctr.data_ptr(),
-        inv_scale.data_ptr(), nodes.data_ptr(), M, ctr.shape[0], order,
-        dim, iters, clamp, refs.data_ptr(), res.data_ptr(),
+        points.data_ptr(), ids.data_ptr(), perm.data_ptr(), ctr.data_ptr(),
+        inv_scale.data_ptr(), nodes.data_ptr(), M, E, order, dim, iters,
+        clamp, refs.data_ptr(), res.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(lib, err, "newton_rows")

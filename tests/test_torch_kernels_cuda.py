@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from multimesh_tpu_torch import TransferOperator, testing  # noqa: E402
+from multimesh_tpu_torch import TransferOperator, _build, testing  # noqa: E402
 from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
 from multimesh_tpu_torch.core import shape  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
@@ -93,6 +93,112 @@ def test_newton_kernel_matches_twin(dev, order, dim):
     assert float((k_ref - p_ref)[both].abs().max()) <= 1e-5
 
 
+def _newton_args(dev, order, dim, M, seed, shape_=None):
+    """M rows on a warped box mesh: nearest-centroid elements, 10% random."""
+    shape_ = shape_ or ((6, 6, 6) if dim == 3 else (20, 20))
+    mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
+    prep = tloc._mesh_prep(mesh.points, order, dev)
+    rng = np.random.default_rng(seed)
+    pts = torch.as_tensor(rng.uniform(0, 1, (M, dim)), device=dev)
+    ids = nearest.nearest_centroid_ref(pts, prep.centroids)
+    wild = torch.as_tensor(rng.random(M) < 0.1, device=dev)
+    rand = torch.as_tensor(rng.integers(0, mesh.nelem, M, dtype=np.int32),
+                           device=dev)
+    ids = torch.where(wild, rand, ids).contiguous()
+    return [pts, ids, prep.ctr, prep.inv_scale, prep.nodes, order, dim, 18,
+            8.0]
+
+
+@pytest.mark.parametrize("case", ["random", "one_element", "bad_ids",
+                                  "empty"])
+def test_group_rows_kernel_is_a_grouping(dev, case):
+    """The counting sort gives a permutation under which the ids are
+    non-decreasing and the out-of-range ones (-1, E and beyond) come last,
+    as the twin's does; it may order the rows of one element otherwise."""
+    E, M = 3000, 0 if case == "empty" else 200_003
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, E, M).astype(np.int32)
+    if case == "one_element":
+        ids[:] = 17
+    elif case == "bad_ids":
+        ids[rng.random(M) < 0.1] = -1
+        ids[rng.random(M) < 0.1] = E
+        ids[:2] = (-7, E + 9)
+    ids_d = torch.as_tensor(ids, device=dev)
+    perm = newton.group_rows(ids_d, E)
+    assert perm.dtype == torch.int32 and perm.shape == (M,)
+    assert torch.equal(torch.sort(perm.long()).values,
+                       torch.arange(M, device=dev))
+    want = newton.group_rows_ref(ids_d, E)
+    key = torch.where((ids_d >= 0) & (ids_d < E), ids_d, E)
+    assert torch.equal(key[perm.long()], key[want.long()])
+
+
+@pytest.mark.parametrize("rows", ["shuffled", "presorted"])
+def test_newton_kernel_grouped_rows_match_twin(dev, rows):
+    """K1 groups the rows by element and writes each result back at its
+    own row: on shuffled rows and on rows already sorted by element, the
+    results equal the twin's row for row (acceptance on >= 99.9%,
+    accepted refs to 1e-5), and are bitwise the same as on the same rows
+    in another order."""
+    args = _newton_args(dev, 4, 3, 30_000, seed=5)
+    if rows == "presorted":
+        order_ = torch.sort(args[1], stable=True).indices
+    else:
+        order_ = torch.randperm(30_000, device=dev)
+    args[0] = args[0][order_].contiguous()
+    args[1] = args[1][order_].contiguous()
+    k_ref, k_res = newton.newton_rows(*args)
+    p_ref, p_res = newton.newton_refs_rows_ref(*args)
+    ka = (k_res < 1e-4) & (k_ref.abs().amax(-1) < 1.05)
+    pa = (p_res < 1e-4) & (p_ref.abs().amax(-1) < 1.05)
+    assert (ka == pa).double().mean() >= 0.999
+    both = ka & pa
+    assert both.double().mean() > 0.8
+    assert float((k_ref - p_ref)[both].abs().max()) <= 1e-5
+    back = torch.argsort(order_)
+    r_ref, r_res = newton.newton_rows(args[0][back].contiguous(),
+                                      args[1][back].contiguous(), *args[2:])
+    assert torch.equal(r_ref[order_], k_ref)
+    assert torch.equal(r_res[order_], k_res)
+
+
+@pytest.mark.parametrize("order,dim", [(4, 3), (2, 3)])
+def test_newton_kernel_slot_overflow_matches_slotted(dev, order, dim):
+    """Rows whose element finds no shared-memory slot read the lattice
+    from global memory with the same arithmetic: one row per element (128
+    distinct elements a block, past every slot cap), and the kernel
+    driven through an identity permutation on shuffled rows, give
+    bitwise the results of the grouped launch; and match the twin."""
+    args = _newton_args(dev, order, dim, 20_000, seed=7,
+                        shape_=(12, 12, 12))
+    E = args[2].shape[0]  # 1,728 elements
+    k_ref, k_res = newton.newton_rows(*args)
+    # identity order: a block of 128 shuffled rows meets ~120 elements
+    pts, ids = args[0], args[1]
+    refs = torch.empty_like(k_ref)
+    res = torch.empty_like(k_res)
+    ident = torch.arange(pts.shape[0], dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.mmt_newton_rows(
+        pts.data_ptr(), ids.data_ptr(), ident.data_ptr(),
+        args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
+        pts.shape[0], E, order, dim, 18, 8.0, refs.data_ptr(),
+        res.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "newton_rows")
+    torch.cuda.synchronize()
+    assert torch.equal(refs, k_ref) and torch.equal(res, k_res)
+    # one row per element
+    one = torch.arange(E, dtype=torch.int32, device=dev)
+    o_pts = args[2].clone()  # element centres: inside every element
+    o_ref, o_res = newton.newton_rows(o_pts, one, *args[2:])
+    p_ref, p_res = newton.newton_refs_rows_ref(o_pts, one, *args[2:])
+    ka = (o_res < 1e-4) & (o_ref.abs().amax(-1) < 1.05)
+    pa = (p_res < 1e-4) & (p_ref.abs().amax(-1) < 1.05)
+    assert torch.equal(ka, pa) and ka.double().mean() >= 0.99
+    assert float((o_ref - p_ref)[ka].abs().max()) <= 1e-5
+
+
 def test_newton_kernel_bad_ids_give_nan(dev):
     """An out-of-range element id reads nothing: NaN refs and residual,
     never accepted."""
@@ -104,6 +210,31 @@ def test_newton_kernel_bad_ids_give_nan(dev):
                                   prep.nodes, 2, 3, 18, 8.0)
     assert torch.isfinite(ref[0]).all() and float(res[0]) < 1e-4
     assert torch.isnan(res[1:]).all() and torch.isnan(ref[1:]).all()
+
+
+@pytest.mark.parametrize("E,C", [(1, 700), (1100, 5000), (3000, 4097)])
+def test_nearest_kernel_ragged_tiles_and_ties(dev, E, C):
+    """K2 where E is not a multiple of the 1,024-source tile nor of the
+    16-source group, where C is not a multiple of a block's 512 queries,
+    with E = 1, and with an exact duplicate of a source in a later tile:
+    the picks match the twin's on >= 99.9% of queries, and queries next
+    to the duplicated source pick its lower index."""
+    rng = np.random.default_rng(E)
+    src = rng.uniform(-3e6, 3e6, (E, 3))
+    q = rng.uniform(-3e6, 3e6, (C, 3))
+    if E > 1:
+        src[E - 1] = src[3]  # the last source, in a later tile, copies 3
+        q[:40] = src[3] + 10.0
+    src_d, q_d = torch.as_tensor(src, device=dev), torch.as_tensor(q,
+                                                                   device=dev)
+    got = nearest.nearest(q_d, src_d)
+    want = nearest.nearest_centroid_ref(q_d, src_d)
+    assert got.dtype == torch.int32 and got.shape == (C,)
+    if E == 1:
+        assert (got == 0).all()
+        return
+    assert (got[:40] == 3).all()
+    assert (got == want).double().mean() >= 0.999
 
 
 def test_wrappers_refuse_cpu_cuda_mix(dev):

@@ -142,3 +142,74 @@ def test_wrapper_refuses_other_devices():
     args = [a.to("meta") if torch.is_tensor(a) else a for a in _cpu_args()]
     with pytest.raises(ValueError, match="unsupported device"):
         tnewton.newton_rows(*args)
+
+
+def test_group_rows_orders_by_element():
+    """``group_rows`` is a permutation under which the in-range ids are
+    non-decreasing, rows of one element keep their order, and the ids out
+    of range (-1, E and beyond) all come last."""
+    E = 50
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, E, 5000).astype(np.int32)
+    ids[rng.random(5000) < 0.05] = -1
+    ids[rng.random(5000) < 0.05] = E
+    ids[:3] = (E + 7, -5, E)
+    perm = tnewton.group_rows(torch.from_numpy(ids), E).numpy()
+    assert perm.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(perm), np.arange(ids.size))
+    got = ids[perm]
+    bad = (got < 0) | (got >= E)
+    n_ok = int((~bad).sum())
+    assert not bad[:n_ok].any() and bad[n_ok:].all()
+    assert (np.diff(got[:n_ok]) >= 0).all()
+    for e in (0, 17, E - 1):  # stable: rows of one element in row order
+        rows = perm[got == e]
+        assert (np.diff(rows) > 0).all()
+    assert tnewton.group_rows(torch.from_numpy(ids[:0]), E).shape == (0,)
+
+
+def _grouped_twin(args):
+    """The kernel's schedule run with the twin: rows visited in
+    ``group_rows`` order, each result written back at its own row; an
+    out-of-range id gives NaN refs and residual."""
+    points, ids = args[0], args[1]
+    E, dim = args[2].shape[0], args[6]
+    perm = tnewton.group_rows(ids, E)
+    valid = (ids[perm] >= 0) & (ids[perm] < E)
+    rows = perm[valid]
+    refs = torch.full((ids.shape[0], dim), float("nan"))
+    res = torch.full((ids.shape[0],), float("nan"))
+    g_ref, g_res = tnewton.newton_refs_rows_ref(
+        points[rows].contiguous(), ids[rows].contiguous(), *args[2:])
+    refs[rows], res[rows] = g_ref, g_res
+    return refs, res
+
+
+@pytest.mark.parametrize("case", ["1/2", "1/3", "2/2", "2/3", "4/2", "4/3",
+                                  "shuffled", "one_element", "bad_ids"])
+def test_grouped_order_equals_row_order(case):
+    """The twin run through the grouped order and written back equals the
+    twin run in row order bit for bit (each row's solve depends on its
+    own row only); the rows of ids -1 and E give NaN."""
+    order, dim = ((int(case[0]), int(case[2])) if "/" in case else (2, 3))
+    pts, ids, prep = _rows(order, dim, C=512, seed=order * 10 + dim)
+    rng = np.random.default_rng(3)
+    if case == "shuffled":
+        p = rng.permutation(ids.size)
+        pts, ids = pts[p].copy(), ids[p].copy()
+    elif case == "one_element":
+        ids[:] = 4
+    bad = np.zeros(ids.size, bool)
+    if case == "bad_ids":
+        bad = rng.random(ids.size) < 0.1
+        ids[bad] = np.where(rng.random(int(bad.sum())) < 0.5, -1,
+                            prep.ctr.shape[0])
+    args = (torch.from_numpy(pts), torch.from_numpy(ids), prep.ctr,
+            prep.inv_scale, prep.nodes, order, dim, ITERS, 8.0)
+    g_ref, g_res = _grouped_twin(args)
+    ok = torch.from_numpy(~bad)
+    w_ref, w_res = tnewton.newton_refs_rows_ref(
+        args[0][ok].contiguous(), args[1][ok].contiguous(), *args[2:])
+    assert torch.equal(g_ref[ok], w_ref) and torch.equal(g_res[ok], w_res)
+    nb = torch.from_numpy(bad)
+    assert torch.isnan(g_ref[nb]).all() and torch.isnan(g_res[nb]).all()
