@@ -15,7 +15,7 @@ each on stdout:
 4. K4 (f64 polish) against its twin on 262,144 accepted K1 solves of
    phase 3 at the same orders and dims, and on known refs;
 5. K5 (pair apply) against its twin on 262,144 rows, 3 parameters,
-   order 4, 3-D;
+   order 4, 3-D, and on the apply's 1,048,576-row chunk;
 6. the slice: ``TransferOperator.build(...).apply(...)`` at the ``gll``
    configuration -- an order-4 spherical-shell source of 4,096 elements,
    10,000,000 targets, 3 parameters, snap fallback -- once to warm up and
@@ -33,8 +33,9 @@ each on stdout:
 
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
-slice's run; K1's time includes its grouping pre-pass, also timed
-alone as ``group_ms``) and, last, the ``{"ok": true, ...}`` line.  Any
+slice's run; the times of K1, K4 and K5 include their grouping
+pre-pass, also timed alone as ``group_ms``, and K4's and K5's kernel
+alone as ``kernel_ms``) and, last, the ``{"ok": true, ...}`` line.  Any
 failed check raises: the script exits non-zero and prints no ``ok``
 line, as it does without a CUDA device.
 
@@ -142,20 +143,26 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def newton_bound(args, refs, res):
-    """K1's bound: per row, ``iters`` sum-factorised evaluations of x and
-    J and one of x for the residual, counting their FMAs (2 FLOP each) --
-    the 1-D bases and the solve, under a tenth of the work, are left out,
-    so this is a slight underestimate -- in f32."""
-    points, ids, ctr, inv_scale, nodes, order, dim, iters, _ = args
+def sumfact_fmas(order, dim, jac):
+    """FMAs of one sum-factorised evaluation of one component over the
+    order-``order`` lattice (over k, then j, then i): the value alone, or
+    with ``jac`` the value and its ``dim`` derivatives.  The least work of
+    such an evaluation; the 1-D bases and a Newton solve, under a tenth
+    of it, are left out, so a bound from it slightly underestimates."""
     n = order + 1
     if dim == 3:
-        jac, val = 6 * n**3 + 9 * n**2 + 12 * n, 3 * n**3 + 3 * n**2 + 3 * n
-    else:
-        jac, val = 4 * n**2 + 6 * n, 2 * n**2 + 2 * n
-    flop = 2 * (iters * jac + val) * points.shape[0]
-    return bound(flop, PEAK_F32, nbytes(points, ids, ctr, inv_scale, nodes,
-                                        refs, res))
+        return 2 * n**3 + 3 * n**2 + 4 * n if jac else n**3 + n**2 + n
+    return 2 * n**2 + 3 * n if jac else n**2 + n
+
+
+def newton_bound(args, refs, res):
+    """K1's bound: per row, ``iters`` evaluations of x and J and one of x
+    for the residual, d components each, 2 FLOP an FMA, in f32."""
+    points, ids, ctr, inv_scale, nodes, order, dim, iters, _ = args
+    per_row = dim * (iters * sumfact_fmas(order, dim, True)
+                     + sumfact_fmas(order, dim, False))
+    return bound(2 * per_row * points.shape[0], PEAK_F32,
+                 nbytes(points, ids, ctr, inv_scale, nodes, refs, res))
 
 
 def phase_device():
@@ -433,22 +440,28 @@ def phase_polish(dev, solved):
                "max_abs_diff_vs_twin": diff, "known_refs_max_err": true_err,
                "known_refs_ok": float(t_ok.double().mean())}
         if i == 0:
-            rec["ms"] = cuda_ms(lambda: polish.polish_pairs(*pargs), 20)
+            rec.update(_grouped_times(polish.polish_pairs,
+                                      polish._polish_kernel, pargs,
+                                      pargs[1], mesh.nelem))
             rec["plain_ms"] = cuda_ms(
                 lambda: polish.polish_pairs_ref(*pargs), 3)
-            # per row and step, each lattice node: d + 1 weight products
-            # and d (d + 1) FMAs for x and J, in f64 (bases and solve
-            # left out)
-            nn = (order + 1) ** dim
-            flop = (pargs[8] * nn * (2 * dim * (dim + 1) + dim + 1)
-                    * pargs[0].shape[0])
-            bound_ms, bound_by = bound(flop, PEAK_F64,
-                                       nbytes(*pargs[:6], hi, lo, ok))
-            rec.update(bound_ms=bound_ms, bound_share=bound_ms / rec["ms"])
+            # per row and step, x and J of d components by sum
+            # factorisation, 2 FLOP an FMA, in f64
+            rows_n, io = pargs[0].shape[0], nbytes(*pargs[:6], hi, lo, ok)
+            flop = 2 * pargs[8] * dim * sumfact_fmas(order, dim, True) * rows_n
+            bound_ms, bound_by = bound(flop, PEAK_F64, io)
+            # the direct form, for comparison: per node d + 1 weight
+            # products and d (d + 1) FMAs
+            direct = (pargs[8] * (order + 1) ** dim
+                      * (2 * dim * (dim + 1) + dim + 1) * rows_n)
+            rec.update(bound_ms=bound_ms, bound_share=bound_ms / rec["ms"],
+                       bound_ms_direct=bound(direct, PEAK_F64, io)[0])
             entry = {"name": "polish_pairs", "route": "cuda",
                      "source": "multimesh_tpu_torch/csrc/polish_pairs.cu",
                      "replaces": "multimesh_tpu/search/pallas_df32.py:318",
                      "max_abs_err": diff, "ms": rec["ms"],
+                     "group_ms": rec["group_ms"],
+                     "kernel_ms": rec["kernel_ms"],
                      "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by,
                      # no PyTorch call takes a Newton step of a GLL map
@@ -461,41 +474,86 @@ def phase_polish(dev, solved):
     return entry
 
 
-def phase_apply(dev, src, fields):
-    """K5 against its twin: random pair refs in random elements (every
-    16th row element -1), the slice's 3 fields."""
-    rng = np.random.default_rng(40)
-    refs = torch.as_tensor(rng.uniform(-1.0, 1.0, (ROWS, 3)), device=dev)
+def _grouped_times(wrapper, kernel, args, ids, E):
+    """A grouped kernel's times: ``ms`` of its wrapper (the grouping and
+    the kernel), ``group_ms`` of the grouping alone and ``kernel_ms`` of
+    the kernel alone on a grouping made beforehand."""
+    perm = newton.group_rows(ids, E)
+    return {"ms": cuda_ms(lambda: wrapper(*args), 20),
+            "group_ms": cuda_ms(lambda: newton.group_rows(ids, E), 20),
+            "kernel_ms": cuda_ms(lambda: kernel(perm, *args), 20)}
+
+
+def _apply_args(dev, src, fields, rows, seed):
+    """Random pair refs in random elements (every 16th row element -1)."""
+    rng = np.random.default_rng(seed)
+    refs = torch.as_tensor(rng.uniform(-1.0, 1.0, (rows, 3)), device=dev)
     hi = refs.float()
     lo = (refs - hi.double()).float()
-    el = torch.as_tensor(rng.integers(0, src.nelem, ROWS, dtype=np.int32),
+    el = torch.as_tensor(rng.integers(0, src.nelem, rows, dtype=np.int32),
                          device=dev)
     el[::16] = -1
-    args = (hi, lo, el, fields, src.order, 3)
+    return (hi, lo, el, fields, src.order, 3)
+
+
+def _apply_bound(args, out, direct=False):
+    """K5's bound: per row and parameter one sum-factorised value, 2 FLOP
+    an FMA, in f64; with ``direct`` the direct form, for comparison: per
+    lattice node a weight product and an FMA."""
+    hi, lo, el, fields, order, dim = args
+    per = (3 * (order + 1) ** dim if direct
+           else 2 * sumfact_fmas(order, dim, False))
+    return bound(per * hi.shape[0] * fields.shape[0], PEAK_F64,
+                 nbytes(hi, lo, el, fields, out))
+
+
+def _apply_rel(args):
+    """K5 against its twin: (max relative difference on rows with an
+    element, whether -1 rows gave 0, max absolute difference, values)."""
     got = polish.apply_pairs(*args)
     want = polish.apply_pairs_ref(*args)
     torch.cuda.synchronize()
+    el = args[2]
     rel = float(((got - want).abs() / want.abs().clamp_min(1e-300))[
         el >= 0].max())
-    zeros = bool((got[el < 0] == 0).all())
-    ms = cuda_ms(lambda: polish.apply_pairs(*args), 20)
+    return (rel, bool((got[el < 0] == 0).all()),
+            float((got - want).abs().max()), got)
+
+
+def phase_apply(dev, src, fields):
+    """K5 against its twin: random pair refs in random elements (every
+    16th row element -1), the slice's 3 fields, on ROWS rows and on the
+    apply's 1,048,576-row chunk."""
+    args = _apply_args(dev, src, fields, ROWS, seed=40)
+    rel, zeros, err, got = _apply_rel(args)
+    times = _grouped_times(polish.apply_pairs, polish._apply_kernel, args,
+                           args[2], src.nelem)
     plain_ms = cuda_ms(lambda: polish.apply_pairs_ref(*args), 3)
-    # per row, parameter and lattice node: a weight product and an FMA,
-    # in f64 (the 1-D bases left out)
-    flop = 3 * ROWS * fields.shape[0] * (src.order + 1) ** 3
-    bound_ms, bound_by = bound(flop, PEAK_F64,
-                               nbytes(hi, lo, el, fields, got))
+    bound_ms, bound_by = _apply_bound(args, got)
+    big = _apply_args(dev, src, fields, 1_048_576, seed=41)
+    rel_1m, zeros_1m, _, got_1m = _apply_rel(big)
+    times_1m = {f"{k}_1m": v for k, v in _grouped_times(
+        polish.apply_pairs, polish._apply_kernel, big, big[2],
+        src.nelem).items()}
+    bound_1m = _apply_bound(big, got_1m)[0]
     emit({"phase": "K5", "rows": ROWS, "params": 3, "order_dim": "4/3",
-          "max_rel_diff": rel, "missing_rows_zero": zeros, "ms": ms,
+          "max_rel_diff": rel, "missing_rows_zero": zeros, **times,
           "plain_ms": plain_ms, "bound_ms": bound_ms,
-          "bound_share": bound_ms / ms})
+          "bound_share": bound_ms / times["ms"],
+          "bound_ms_direct": _apply_bound(args, got, direct=True)[0],
+          "rows_1m": 1_048_576,
+          "max_rel_diff_1m": rel_1m, **times_1m, "bound_ms_1m": bound_1m,
+          "bound_share_1m": bound_1m / times_1m["ms_1m"]})
     check(rel <= 1e-12, f"K5 values differ by {rel:.3g} relative")
     check(zeros, "K5 element -1 did not give 0")
+    check(rel_1m <= 1e-12, f"K5 values (1M rows) differ by {rel_1m:.3g}")
+    check(zeros_1m, "K5 element -1 did not give 0 (1M rows)")
     return {"name": "apply_pairs", "route": "cuda",
             "source": "multimesh_tpu_torch/csrc/apply_pairs.cu",
             "replaces": "multimesh_tpu/search/pallas_df32.py:407",
-            "max_abs_err": float((got - want).abs().max()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, **times, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **times_1m,
+            "bound_ms_1m": bound_1m,
             # a gather and an einsum at least: no single call
             "library_ms": None}
 
@@ -784,6 +842,7 @@ def main():
     for entry, name in ((k1, "newton_rows"), (k2, "nearest_centroid"),
                         (k4, "polish_pairs"), (k5, "apply_pairs")):
         entry["launches"] = launches[name]
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
     k1["launches_order1"] = order1
     print(smi, flush=True)
     emit({"kernels": [k1, k2, k4, k5]})

@@ -43,13 +43,14 @@ _SIGNATURES = {
     "mmt_group_rows": (_P, _I64, _I64, _P, _P, _P),
     # queries, centroids, center, C, E, dim, out, stream
     "mmt_nearest_centroid": (_P, _P, _P, _I64, _I64, _I32, _P, _P),
-    # points, ids, ref0, ctr, inv_scale, nodes64, M, E, order, dim, iters,
-    # ref_hi, ref_lo, ok, stream
-    "mmt_polish_pairs": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+    # points, ids, perm, ref0, ctr, inv_scale, nodes64, M, E, order, dim,
+    # iters, ref_hi, ref_lo, ok, stream
+    "mmt_polish_pairs": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
                          _I32, _P, _P, _P, _P),
-    # ref_hi, ref_lo, elements, fields, M, E, F, order, dim, out, stream
-    "mmt_apply_pairs": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P,
-                        _P),
+    # ref_hi, ref_lo, elements, perm, fields, M, E, F, order, dim, out,
+    # stream
+    "mmt_apply_pairs": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                        _P, _P),
 }
 
 _library = None

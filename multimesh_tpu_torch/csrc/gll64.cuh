@@ -1,5 +1,5 @@
-// f64 GLL tables and 1-D Lagrange cardinals for the f64 kernels
-// (polish_pairs.cu, apply_pairs.cu).
+// f64 GLL tables, 1-D Lagrange cardinals and the sum-factorised lattice
+// evaluation of the f64 kernels (polish_pairs.cu, apply_pairs.cu).
 //
 // Nodes x_i and barycentric weights w_i = 1 / prod_{j != i}(x_i - x_j) are
 // the f64 values of multimesh_tpu_torch/core/gll.py (gll_nodes,
@@ -52,36 +52,42 @@ template <> struct Gll<4> {
   }
 };
 
-// Cardinal values l_i(t) and, with DERIV, derivatives l_i'(t), in the
-// product form l_i(t) = w_i prod_{j != i}(t - x_j) (gll.lagrange_eval /
-// lagrange_deriv), fully unrolled.
+// Cardinal values l_i(t) = w_i P_i S_i and, with DERIV, derivatives
+// l_i'(t), from the prefix products P_i = prod_{j<i}(t - x_j), the suffix
+// products S_i = prod_{j>i}(t - x_j) and their derivatives, fully unrolled
+// (the polynomials of gll.lagrange_eval / lagrange_deriv, rounded in
+// another order).
 template <int ORDER, bool DERIV>
 __device__ __forceinline__ void lagrange(double t, double (&l)[ORDER + 1],
                                          double (&dl)[ORDER + 1]) {
   constexpr int N1 = ORDER + 1;
-  double diff[N1];
+  double d[N1], P[N1], dP[N1], S[N1], dS[N1];
 #pragma unroll
-  for (int j = 0; j < N1; ++j) diff[j] = t - Gll<ORDER>::x(j);
+  for (int j = 0; j < N1; ++j) d[j] = t - Gll<ORDER>::x(j);
+  P[1] = d[0];
+  dP[1] = 1.0;
 #pragma unroll
-  for (int i = 0; i < N1; ++i) {
-    double prod = 1.0;
+  for (int i = 2; i < N1; ++i) {
+    P[i] = P[i - 1] * d[i - 1];
+    if constexpr (DERIV) dP[i] = fma(dP[i - 1], d[i - 1], P[i - 1]);
+  }
+  S[N1 - 2] = d[N1 - 1];
+  dS[N1 - 2] = 1.0;
 #pragma unroll
-    for (int j = 0; j < N1; ++j)
-      if (j != i) prod *= diff[j];
-    l[i] = Gll<ORDER>::w(i) * prod;
-    if constexpr (DERIV) {
-      double total = 0.0;
+  for (int i = N1 - 3; i >= 0; --i) {
+    S[i] = S[i + 1] * d[i + 1];
+    if constexpr (DERIV) dS[i] = fma(dS[i + 1], d[i + 1], S[i + 1]);
+  }
+  l[0] = Gll<ORDER>::w(0) * S[0];
 #pragma unroll
-      for (int k = 0; k < N1; ++k) {
-        if (k == i) continue;
-        double term = 1.0;
+  for (int i = 1; i < N1 - 1; ++i) l[i] = Gll<ORDER>::w(i) * (P[i] * S[i]);
+  l[N1 - 1] = Gll<ORDER>::w(N1 - 1) * P[N1 - 1];
+  if constexpr (DERIV) {
+    dl[0] = Gll<ORDER>::w(0) * dS[0];
 #pragma unroll
-        for (int j = 0; j < N1; ++j)
-          if (j != i && j != k) term *= diff[j];
-        total += term;
-      }
-      dl[i] = Gll<ORDER>::w(i) * total;
-    }
+    for (int i = 1; i < N1 - 1; ++i)
+      dl[i] = Gll<ORDER>::w(i) * fma(dP[i], S[i], P[i] * dS[i]);
+    dl[N1 - 1] = Gll<ORDER>::w(N1 - 1) * dP[N1 - 1];
   }
 }
 
@@ -93,6 +99,109 @@ __device__ __forceinline__ double pick(const double (&a)[N], int i) {
   for (int q = 1; q < N; ++q)
     if (i == q) v = a[q];
   return v;
+}
+
+// NC node components (the lattice's d coordinates, or one field value)
+// staged in shared memory as NC planes of NN doubles: one LDS.64 broadcast
+// per read.
+template <int NC, int NN> struct SharedNodes {
+  const double* p;
+  __device__ __forceinline__ void node(int m, double (&v)[NC]) const {
+#pragma unroll
+    for (int a = 0; a < NC; ++a) v[a] = p[a * NN + m];
+  }
+};
+
+// The same values in global memory, interleaved as m * NC + a.
+template <int NC> struct GlobalNodes {
+  const double* __restrict__ p;
+  __device__ __forceinline__ void node(int m, double (&v)[NC]) const {
+#pragma unroll
+    for (int a = 0; a < NC; ++a) v[a] = __ldg(p + m * NC + a);
+  }
+};
+
+// x[c] = sum_m N_m(ref) v_m[c] over the lattice nodes (canonical row-major
+// order, axis 0 outermost) and, with JAC, J[c][b] = dx[c]/dref_b, by sum
+// factorisation: over k, A = sum l2 v and B = sum dl2 v; over j, AA, AB,
+// BA; over i, x and J.  At order 4, 3-D that is 155 FMAs a component for
+// x alone and 345 with J.  The outer axis stays rolled to hold registers
+// down; the same code serves shared and global nodes, so both give the
+// same bits.
+template <int ORDER, int DIM, int NC, bool JAC, class Nodes>
+__device__ __forceinline__ void eval_nodes(const Nodes& nodes,
+                                           const double (&l)[DIM][ORDER + 1],
+                                           const double (&dl)[DIM][ORDER + 1],
+                                           double (&x)[NC],
+                                           double (&J)[NC][DIM]) {
+  constexpr int N1 = ORDER + 1;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    x[c] = 0.0;
+#pragma unroll
+    for (int b = 0; b < DIM; ++b) J[c][b] = 0.0;
+  }
+#pragma unroll 1
+  for (int i = 0; i < N1; ++i) {
+    const double l0 = pick(l[0], i);
+    const double d0 = JAC ? pick(dl[0], i) : 0.0;
+    double AA[NC], AB[NC], BA[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) AA[c] = AB[c] = BA[c] = 0.0;
+    if constexpr (DIM == 3) {
+#pragma unroll
+      for (int j = 0; j < N1; ++j) {
+        double A[NC], B[NC];
+#pragma unroll
+        for (int k = 0; k < N1; ++k) {
+          double v[NC];
+          nodes.node((i * N1 + j) * N1 + k, v);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            A[c] = k == 0 ? l[2][0] * v[c] : fma(l[2][k], v[c], A[c]);
+            if constexpr (JAC)
+              B[c] = k == 0 ? dl[2][0] * v[c] : fma(dl[2][k], v[c], B[c]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          AA[c] = fma(l[1][j], A[c], AA[c]);
+          if constexpr (JAC) {
+            AB[c] = fma(l[1][j], B[c], AB[c]);
+            BA[c] = fma(dl[1][j], A[c], BA[c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        x[c] = fma(l0, AA[c], x[c]);
+        if constexpr (JAC) {
+          J[c][0] = fma(d0, AA[c], J[c][0]);
+          J[c][1] = fma(l0, BA[c], J[c][1]);
+          J[c][2] = fma(l0, AB[c], J[c][2]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < N1; ++j) {
+        double v[NC];
+        nodes.node(i * N1 + j, v);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          AA[c] = fma(l[1][j], v[c], AA[c]);
+          if constexpr (JAC) AB[c] = fma(dl[1][j], v[c], AB[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        x[c] = fma(l0, AA[c], x[c]);
+        if constexpr (JAC) {
+          J[c][0] = fma(d0, AA[c], J[c][0]);
+          J[c][1] = fma(l0, AB[c], J[c][1]);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace mmt_gll64

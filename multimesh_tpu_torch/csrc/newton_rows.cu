@@ -35,10 +35,11 @@
 // bytes at order 4, 3-D, is not 16-byte aligned), as one float4 (float2
 // in 2-D) per node, and every node read in the solve is a warp-uniform
 // LDS.128 broadcast instead of three scattered 4-byte L1/L2 reads per
-// row.  A row whose element found no slot (more than kSlots distinct
-// elements in a block, as in sparse rescue rounds or an ungrouped order)
-// reads its lattice from global memory with the same arithmetic, so its
-// results are bit for bit those of a slot.  The map and Jacobian are
+// row (the slots are assigned by grouping.cuh, shared with K4 and K5).  A
+// row whose element found no slot (more than kSlots distinct elements in
+// a block, as in sparse rescue rounds or an ungrouped order) reads its
+// lattice from global memory with the same arithmetic, so its results are
+// bit for bit those of a slot.  The map and Jacobian are
 // evaluated by sum factorisation -- over k: A = sum l2 v, B = sum dl2 v
 // per (i, j, a);
 // over j: AA, AB, BA; over i: x and J -- 1,035 FMAs a step at order 4,
@@ -56,10 +57,11 @@
 
 #include <type_traits>
 
+#include "grouping.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using mmt_grouping::kBlockRows;
 constexpr int kSlotBytes = 32768;  // shared memory for staged lattices
 
 // GLL nodes x_i and barycentric weights w_i = 1 / prod_{j != i}(x_i - x_j)
@@ -156,9 +158,7 @@ template <int ORDER, int DIM> struct Shape {
   static constexpr int kNodes = DIM == 3 ? N1 * N1 * N1 : N1 * N1;
   using Vec = std::conditional_t<DIM == 3, float4, float2>;
   static constexpr int kSlots =
-      kSlotBytes / (kNodes * (int)sizeof(Vec)) < kThreads
-          ? kSlotBytes / (kNodes * (int)sizeof(Vec))
-          : kThreads;
+      mmt_grouping::slots_for(kSlotBytes, kNodes * (int)sizeof(Vec));
 };
 
 // A lattice staged in shared memory: one wide load per node.
@@ -322,7 +322,7 @@ __device__ __forceinline__ void solve(const Lattice& lat,
 }
 
 template <int ORDER, int DIM>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kBlockRows, 3)
 newton_rows_kernel(const double* __restrict__ points,
                    const int* __restrict__ ids,
                    const int* __restrict__ perm,
@@ -336,14 +336,10 @@ newton_rows_kernel(const double* __restrict__ points,
   constexpr int NN = Sh::kNodes;
   constexpr int kSlots = Sh::kSlots;
   __shared__ Vec lat[kSlots * NN];
-  __shared__ int row_elem[kThreads];
-  __shared__ int slot_elem[kSlots];
-  __shared__ int warp_runs[kWarps];
+  __shared__ mmt_grouping::SlotTable<kSlots> tab;
 
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int64_t pos = blockIdx.x * (int64_t)kThreads + t;
+  const int64_t pos = blockIdx.x * (int64_t)kBlockRows + t;
   int64_t row = 0;
   int e = -1;
   if (pos < M) {
@@ -351,33 +347,16 @@ newton_rows_kernel(const double* __restrict__ points,
     e = ids[row];
   }
   const bool ok = pos < M && e >= 0 && e < E;
-
-  // Runs of equal elements among the block's rows; run r takes slot r.
-  row_elem[t] = ok ? e : -1;
-  __syncthreads();
-  const bool start = ok && (t == 0 || row_elem[t - 1] != e);
-  const unsigned starts = __ballot_sync(0xffffffffu, start);
-  if (lane == 0) warp_runs[warp] = __popc(starts);
-  __syncthreads();
-  int runs = 0, before = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    before += w < warp ? warp_runs[w] : 0;
-    runs += warp_runs[w];
-  }
-  // (2u << lane) - 1: the lanes up to and including this one
-  const int slot = before + __popc(starts & ((2u << lane) - 1u)) - 1;
-  if (start && slot < kSlots) slot_elem[slot] = e;
-  __syncthreads();
+  int staged;
+  const int slot = mmt_grouping::assign_slots(tab, e, ok, staged);
 
   // Stage the slotted lattices: consecutive threads read consecutive
   // floats of an element's row (coalesced) into its node vectors.
-  const int staged = runs < kSlots ? runs : kSlots;
-  for (int q = t; q < staged * NN * DIM; q += kThreads) {
+  for (int q = t; q < staged * NN * DIM; q += kBlockRows) {
     const int s = q / (NN * DIM);
     const int r = q - s * (NN * DIM);
     const int m = r / DIM;
-    const float v = __ldg(nodes + (int64_t)slot_elem[s] * (NN * DIM) + r);
+    const float v = __ldg(nodes + (int64_t)tab.elem[s] * (NN * DIM) + r);
     reinterpret_cast<float*>(&lat[s * NN + m])[r - m * DIM] = v;
   }
   __syncthreads();
@@ -487,8 +466,8 @@ cudaError_t launch(const void* points, const void* ids, const void* perm,
                    const void* ctr, const void* inv_scale, const void* nodes,
                    int64_t M, int64_t E, int iters, float clamp, void* refs,
                    void* res, cudaStream_t stream) {
-  const int64_t blocks = (M + kThreads - 1) / kThreads;
-  newton_rows_kernel<ORDER, DIM><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  const int64_t blocks = (M + kBlockRows - 1) / kBlockRows;
+  newton_rows_kernel<ORDER, DIM><<<(unsigned)blocks, kBlockRows, 0, stream>>>(
       static_cast<const double*>(points), static_cast<const int*>(ids),
       static_cast<const int*>(perm), static_cast<const double*>(ctr),
       static_cast<const double*>(inv_scale), static_cast<const float*>(nodes),

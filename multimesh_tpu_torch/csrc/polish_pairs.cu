@@ -1,5 +1,6 @@
-// K4: warm-started f64 Newton polish of accepted (point, element) pairs,
-// one thread per row.
+// K4: warm-started f64 Newton polish of accepted (point, element) pairs
+// over rows grouped by element, one thread per row, the block's element
+// lattices staged in shared memory.
 //
 // Replaces the Pallas TPU kernel of the JAX package,
 // search/pallas_df32.py :: polish_refs_rows (wrapper polish_pairs), which
@@ -17,124 +18,55 @@
 // is not ok); no clamp.  An out-of-range element id writes NaN refs and
 // ok = false instead of reading out of bounds.
 //
-// What bounds it on Hopper: neither bytes nor FLOPs at the main path's
-// size -- one step reads a 3 KB lattice row (order 4, 3-D; the 12 MB f64
-// lattice of E = 4,096 sits in L2) against ~1,700 f64 FMAs, a few
-// milliseconds' worth of f64 work per million rows at the card's f64 rate.
-// The design keeps K1's: lattice gathered by id inside the kernel, product
-// form Lagrange values with compile-time GLL constants, the outer node axis
-// rolled to hold registers down.
+// Rows are visited in the order `perm` gives (mmt_group_rows of
+// newton_rows.cu); thread t of block b polishes row perm[b * 128 + t] and
+// writes its refs and ok back at that row, so the caller's order is kept.
+// Any permutation gives the same results, bit for bit; grouping only makes
+// them cheap.
+//
+// What bounds it on Hopper: with one thread per row in target order, a
+// warp's 32 rows read 32 elements' 3 KB lattice rows (order 4, 3-D), every
+// load 32 sectors, ~0.8 GB of L2 traffic per 262,144 rows.  Grouped, the
+// 128 rows of a block share a few elements, so the block copies their
+// lattices once into shared memory, coalesced, as three planes of 125
+// doubles (3,000 B a slot, 10 slots in 32 KB, against ~3 elements a block
+// at 64 rows per element), and every node read in the step is a
+// warp-uniform LDS.64 broadcast (grouping.cuh assigns the slots; a row
+// whose element found none reads global memory with the same arithmetic,
+// so its results are bit for bit those of a slot).  x and J are evaluated
+// by sum factorisation in f64 (gll64.cuh :: eval_nodes, 1,035 FMAs a step
+// at order 4, 3-D, where the direct form took ~1,700) from prefix/suffix
+// Lagrange products.  What remains is the f64 arithmetic, the grouping
+// pass and the rows' scattered reads and writes.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "gll64.cuh"
+#include "grouping.cuh"
 
 namespace {
 
+using mmt_gll64::eval_nodes;
+using mmt_gll64::GlobalNodes;
 using mmt_gll64::lagrange;
-using mmt_gll64::pick;
+using mmt_gll64::SharedNodes;
+using mmt_grouping::kBlockRows;
 
-// x(ref) and J[a][b] = dx_a/dref_b over the f64 lattice row nd (layout
-// m * DIM + a, canonical row-major node order).
-template <int ORDER, int DIM>
-__device__ __forceinline__ void eval_map(const double* __restrict__ nd,
-                                         const double (&l)[DIM][ORDER + 1],
-                                         const double (&dl)[DIM][ORDER + 1],
-                                         double (&x)[DIM],
-                                         double (&J)[DIM][DIM]) {
+constexpr int kSlotBytes = 32768;  // shared memory for staged lattices
+
+// `iters` Newton steps from ref for the unit-frame point p; returns ok.
+template <int ORDER, int DIM, class Nodes>
+__device__ __forceinline__ bool polish(const Nodes& nodes,
+                                       const double (&p)[DIM], int iters,
+                                       double (&ref)[DIM]) {
   constexpr int N1 = ORDER + 1;
-#pragma unroll
-  for (int a = 0; a < DIM; ++a) {
-    x[a] = 0.0;
-#pragma unroll
-    for (int b = 0; b < DIM; ++b) J[a][b] = 0.0;
-  }
-#pragma unroll 1
-  for (int i = 0; i < N1; ++i) {
-    const double l0 = pick(l[0], i);
-    const double d0 = pick(dl[0], i);
-    if constexpr (DIM == 3) {
-#pragma unroll
-      for (int j = 0; j < N1; ++j) {
-        const double l01 = l0 * l[1][j];
-        const double d0l1 = d0 * l[1][j];
-        const double l0d1 = l0 * dl[1][j];
-#pragma unroll
-        for (int k = 0; k < N1; ++k) {
-          const double* v = nd + ((i * N1 + j) * N1 + k) * 3;
-          const double N = l01 * l[2][k];
-          const double g0 = d0l1 * l[2][k];
-          const double g1 = l0d1 * l[2][k];
-          const double g2 = l01 * dl[2][k];
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const double va = __ldg(v + a);
-            x[a] = fma(N, va, x[a]);
-            J[a][0] = fma(g0, va, J[a][0]);
-            J[a][1] = fma(g1, va, J[a][1]);
-            J[a][2] = fma(g2, va, J[a][2]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < N1; ++j) {
-        const double* v = nd + (i * N1 + j) * 2;
-        const double N = l0 * l[1][j];
-        const double g0 = d0 * l[1][j];
-        const double g1 = l0 * dl[1][j];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const double va = __ldg(v + a);
-          x[a] = fma(N, va, x[a]);
-          J[a][0] = fma(g0, va, J[a][0]);
-          J[a][1] = fma(g1, va, J[a][1]);
-        }
-      }
-    }
-  }
-}
-
-template <int ORDER, int DIM>
-__global__ void __launch_bounds__(128)
-polish_pairs_kernel(const double* __restrict__ points,
-                    const int* __restrict__ ids,
-                    const float* __restrict__ ref0,
-                    const double* __restrict__ ctr,
-                    const double* __restrict__ inv_scale,
-                    const double* __restrict__ nodes, int64_t M, int64_t E,
-                    int iters, float* __restrict__ ref_hi,
-                    float* __restrict__ ref_lo, uint8_t* __restrict__ ok_out) {
-  constexpr int N1 = ORDER + 1;
-  constexpr int NN = DIM == 3 ? N1 * N1 * N1 : N1 * N1;
-  const int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (row >= M) return;
-  const int e = ids[row];
-  if (e < 0 || e >= E) {
-#pragma unroll
-    for (int a = 0; a < DIM; ++a) {
-      ref_hi[row * DIM + a] = NAN;
-      ref_lo[row * DIM + a] = NAN;
-    }
-    ok_out[row] = 0;
-    return;
-  }
-  const double* nd = nodes + (int64_t)e * (NN * DIM);
-  const double s = inv_scale[e];
-  double p[DIM], ref[DIM];
-#pragma unroll
-  for (int a = 0; a < DIM; ++a) {
-    p[a] = (points[row * DIM + a] - ctr[(int64_t)e * DIM + a]) * s;
-    ref[a] = (double)ref0[row * DIM + a];
-  }
-
   bool ok = true;
   double l[DIM][N1], dl[DIM][N1], x[DIM], J[DIM][DIM];
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
     for (int a = 0; a < DIM; ++a) lagrange<ORDER, true>(ref[a], l[a], dl[a]);
-    eval_map<ORDER, DIM>(nd, l, dl, x, J);
+    eval_nodes<ORDER, DIM, DIM, true>(nodes, l, dl, x, J);
     double r[DIM], step[DIM];
 #pragma unroll
     for (int a = 0; a < DIM; ++a) r[a] = p[a] - x[a];
@@ -165,7 +97,74 @@ polish_pairs_kernel(const double* __restrict__ points,
       ref[a] += isfinite(step[a]) ? step[a] : 0.0;
     }
   }
+  return ok;
+}
 
+template <int ORDER, int DIM>
+__global__ void __launch_bounds__(kBlockRows)
+polish_pairs_kernel(const double* __restrict__ points,
+                    const int* __restrict__ ids,
+                    const int* __restrict__ perm,
+                    const float* __restrict__ ref0,
+                    const double* __restrict__ ctr,
+                    const double* __restrict__ inv_scale,
+                    const double* __restrict__ nodes, int64_t M, int64_t E,
+                    int iters, float* __restrict__ ref_hi,
+                    float* __restrict__ ref_lo, uint8_t* __restrict__ ok_out) {
+  constexpr int N1 = ORDER + 1;
+  constexpr int NN = DIM == 3 ? N1 * N1 * N1 : N1 * N1;
+  constexpr int kSlots =
+      mmt_grouping::slots_for(kSlotBytes, NN * DIM * (int)sizeof(double));
+  __shared__ double lat[kSlots * DIM * NN];  // slot s, plane a: (s*DIM+a)*NN
+  __shared__ mmt_grouping::SlotTable<kSlots> tab;
+
+  const int t = threadIdx.x;
+  const int64_t pos = blockIdx.x * (int64_t)kBlockRows + t;
+  int64_t row = 0;
+  int e = -1;
+  if (pos < M) {
+    row = perm[pos];
+    e = ids[row];
+  }
+  const bool valid = pos < M && e >= 0 && e < E;
+  int staged;
+  const int slot = mmt_grouping::assign_slots(tab, e, valid, staged);
+
+  // Stage the slotted lattices: consecutive threads read consecutive
+  // doubles of an element's row (layout m * DIM + a) into its planes.
+  for (int q = t; q < staged * NN * DIM; q += kBlockRows) {
+    const int s = q / (NN * DIM);
+    const int r = q - s * (NN * DIM);
+    const int m = r / DIM;
+    lat[(s * DIM + (r - m * DIM)) * NN + m] =
+        __ldg(nodes + (int64_t)tab.elem[s] * (NN * DIM) + r);
+  }
+  __syncthreads();
+
+  if (pos >= M) return;
+  if (!valid) {
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) {
+      ref_hi[row * DIM + a] = NAN;
+      ref_lo[row * DIM + a] = NAN;
+    }
+    ok_out[row] = 0;
+    return;
+  }
+  const double sc = inv_scale[e];
+  double p[DIM], ref[DIM];
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) {
+    p[a] = (points[row * DIM + a] - ctr[(int64_t)e * DIM + a]) * sc;
+    ref[a] = (double)ref0[row * DIM + a];
+  }
+  const bool ok =
+      slot < kSlots
+          ? polish<ORDER, DIM>(SharedNodes<DIM, NN>{lat + slot * DIM * NN},
+                               p, iters, ref)
+          : polish<ORDER, DIM>(
+                GlobalNodes<DIM>{nodes + (int64_t)e * (NN * DIM)}, p, iters,
+                ref);
 #pragma unroll
   for (int a = 0; a < DIM; ++a) {
     const float hi = (float)ref[a];
@@ -176,15 +175,16 @@ polish_pairs_kernel(const double* __restrict__ points,
 }
 
 template <int ORDER, int DIM>
-cudaError_t launch(const void* points, const void* ids, const void* ref0,
-                   const void* ctr, const void* inv_scale, const void* nodes,
-                   int64_t M, int64_t E, int iters, void* ref_hi,
-                   void* ref_lo, void* ok, cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  const int64_t blocks = (M + kThreads - 1) / kThreads;
-  polish_pairs_kernel<ORDER, DIM><<<(unsigned)blocks, kThreads, 0, stream>>>(
+cudaError_t launch(const void* points, const void* ids, const void* perm,
+                   const void* ref0, const void* ctr, const void* inv_scale,
+                   const void* nodes, int64_t M, int64_t E, int iters,
+                   void* ref_hi, void* ref_lo, void* ok,
+                   cudaStream_t stream) {
+  const int64_t blocks = (M + kBlockRows - 1) / kBlockRows;
+  polish_pairs_kernel<ORDER, DIM><<<(unsigned)blocks, kBlockRows, 0, stream>>>(
       static_cast<const double*>(points), static_cast<const int*>(ids),
-      static_cast<const float*>(ref0), static_cast<const double*>(ctr),
+      static_cast<const int*>(perm), static_cast<const float*>(ref0),
+      static_cast<const double*>(ctr),
       static_cast<const double*>(inv_scale),
       static_cast<const double*>(nodes), M, E, iters,
       static_cast<float*>(ref_hi), static_cast<float*>(ref_lo),
@@ -195,33 +195,33 @@ cudaError_t launch(const void* points, const void* ids, const void* ref0,
 }  // namespace
 
 extern "C" int mmt_polish_pairs(const void* points, const void* ids,
-                                const void* ref0, const void* ctr,
-                                const void* inv_scale, const void* nodes,
-                                int64_t M, int64_t E, int order, int dim,
-                                int iters, void* ref_hi, void* ref_lo,
-                                void* ok, void* stream) {
+                                const void* perm, const void* ref0,
+                                const void* ctr, const void* inv_scale,
+                                const void* nodes, int64_t M, int64_t E,
+                                int order, int dim, int iters, void* ref_hi,
+                                void* ref_lo, void* ok, void* stream) {
   if (M <= 0) return (int)cudaSuccess;
-  if (M > (int64_t)0x7fffffff * 128) return (int)cudaErrorInvalidValue;
+  if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (order * 10 + dim) {
-    case 12: return (int)launch<1, 2>(points, ids, ref0, ctr, inv_scale,
-                                      nodes, M, E, iters, ref_hi, ref_lo, ok,
-                                      s);
-    case 13: return (int)launch<1, 3>(points, ids, ref0, ctr, inv_scale,
-                                      nodes, M, E, iters, ref_hi, ref_lo, ok,
-                                      s);
-    case 22: return (int)launch<2, 2>(points, ids, ref0, ctr, inv_scale,
-                                      nodes, M, E, iters, ref_hi, ref_lo, ok,
-                                      s);
-    case 23: return (int)launch<2, 3>(points, ids, ref0, ctr, inv_scale,
-                                      nodes, M, E, iters, ref_hi, ref_lo, ok,
-                                      s);
-    case 42: return (int)launch<4, 2>(points, ids, ref0, ctr, inv_scale,
-                                      nodes, M, E, iters, ref_hi, ref_lo, ok,
-                                      s);
-    case 43: return (int)launch<4, 3>(points, ids, ref0, ctr, inv_scale,
-                                      nodes, M, E, iters, ref_hi, ref_lo, ok,
-                                      s);
+    case 12: return (int)launch<1, 2>(points, ids, perm, ref0, ctr,
+                                      inv_scale, nodes, M, E, iters, ref_hi,
+                                      ref_lo, ok, s);
+    case 13: return (int)launch<1, 3>(points, ids, perm, ref0, ctr,
+                                      inv_scale, nodes, M, E, iters, ref_hi,
+                                      ref_lo, ok, s);
+    case 22: return (int)launch<2, 2>(points, ids, perm, ref0, ctr,
+                                      inv_scale, nodes, M, E, iters, ref_hi,
+                                      ref_lo, ok, s);
+    case 23: return (int)launch<2, 3>(points, ids, perm, ref0, ctr,
+                                      inv_scale, nodes, M, E, iters, ref_hi,
+                                      ref_lo, ok, s);
+    case 42: return (int)launch<4, 2>(points, ids, perm, ref0, ctr,
+                                      inv_scale, nodes, M, E, iters, ref_hi,
+                                      ref_lo, ok, s);
+    case 43: return (int)launch<4, 3>(points, ids, perm, ref0, ctr,
+                                      inv_scale, nodes, M, E, iters, ref_hi,
+                                      ref_lo, ok, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

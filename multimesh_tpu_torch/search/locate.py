@@ -540,11 +540,12 @@ def _df32_polish(points, elements, refs, accepted, prep, order, cfg, chunk,
     for s in range(0, points.shape[0], chunk):
         el = elements[s:s + chunk]
         ref0 = refs[s:s + chunk].contiguous()
-        hi, lo, ok = fn(points[s:s + chunk].contiguous(),
-                        el.clamp_min(0).contiguous(), ref0, prep.ctr,
-                        prep.inv_scale, prep.nodes64, order, d,
-                        cfg.df32_polish_iters)
-        keep = (accepted[s:s + chunk] & (el >= 0) & ok)[:, None]
+        # raw ids: a -1 row comes back not ok (and the kernel's grouping
+        # puts it in the last bin, not in element 0's)
+        hi, lo, ok = fn(points[s:s + chunk].contiguous(), el.contiguous(),
+                        ref0, prep.ctr, prep.inv_scale, prep.nodes64, order,
+                        d, cfg.df32_polish_iters)
+        keep = (accepted[s:s + chunk] & ok)[:, None]
         his.append(torch.where(keep, hi, ref0))
         los.append(torch.where(keep, lo, 0.0))
     return torch.cat(his), torch.cat(los)

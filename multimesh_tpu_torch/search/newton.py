@@ -34,6 +34,7 @@ from .. import _build
 from ..core import shape
 
 ORDERS = (1, 2, 4)  # the orders the kernel is compiled for
+_MAX_ROWS = 2**31 - 1  # int32 row indices
 
 
 def newton_refs_rows_ref(points, ids, ctr, inv_scale, nodes, order: int,
@@ -58,7 +59,8 @@ def group_rows(ids, E: int):
     """The rows' grouping permutation [M] int32: ids non-decreasing under
     it, out-of-range ids last.  CPU tensors run the twin; CUDA tensors
     launch the counting sort of ``csrc/newton_rows.cu``, which leaves
-    the rows of one element in no particular order."""
+    the rows of one element in no particular order.  It is the first pass
+    of K1, K4 and K5 on the card, so it caps their rows at 2**31 - 1."""
     device = ids.device
     if device.type == "cpu":
         return group_rows_ref(ids, E)
@@ -67,6 +69,9 @@ def group_rows(ids, E: int):
     if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous():
         raise ValueError("group_rows: ids must be contiguous 1-D int32")
     M = ids.shape[0]
+    if M > _MAX_ROWS or E >= _MAX_ROWS:
+        raise ValueError(f"group_rows: {M} rows of {E} elements, more than "
+                         f"the int32 permutation holds")
     perm = torch.empty((M,), dtype=torch.int32, device=device)
     counts = torch.empty((E + 1,), dtype=torch.int32, device=device)
     lib = _build.library()

@@ -23,6 +23,7 @@ import torch
 
 from .. import _build
 from ..core import gll, shape
+from .newton import group_rows
 
 ORDERS = (1, 2, 4)  # the orders the kernels are compiled for
 # A genuine polish step of an accepted f32 ref is O(f32 residual); a larger
@@ -34,7 +35,9 @@ STEP_GUARD = 0.05
 def polish_pairs_ref(points, ids, ref0, ctr, inv_scale, nodes64, order: int,
                      dim: int, iters: int):
     """Plain PyTorch twin of K4 (any device)."""
-    ids = ids.long()
+    E = ctr.shape[0]
+    bad = (ids < 0) | (ids >= E)
+    ids = ids.clamp(0, E - 1).long()  # out-of-range rows: NaN, not ok
     p_c = (points - ctr[ids]) * inv_scale[ids, None]
     rows = nodes64[ids].view(-1, (order + 1) ** dim, dim)
     ref = ref0.to(torch.float64)
@@ -44,17 +47,20 @@ def polish_pairs_ref(points, ids, ref0, ctr, inv_scale, nodes64, order: int,
         step, _ = shape._solve_small(shape.shape_jacobian(order, rows, ref), r)
         ok &= (step.abs() < STEP_GUARD).all(dim=-1)  # NaN: not ok
         ref = ref + torch.where(torch.isfinite(step), step, 0.0)
+    ref = torch.where(bad[:, None], float("nan"), ref)
     hi = ref.to(torch.float32)
-    return hi, (ref - hi.to(torch.float64)).to(torch.float32), ok
+    return hi, (ref - hi.to(torch.float64)).to(torch.float32), ok & ~bad
 
 
 def apply_pairs_ref(ref_hi, ref_lo, elements, fields, order: int, dim: int):
     """Plain PyTorch twin of K5 (any device)."""
+    E = fields.shape[1]
     ref = ref_hi.to(torch.float64) + ref_lo.to(torch.float64)
     weights = gll.tensor_basis(order, ref)  # [M, n]
-    gathered = fields[:, elements.clamp_min(0).long(), :]  # [F, M, n]
+    gathered = fields[:, elements.clamp(0, E - 1).long(), :]  # [F, M, n]
     vals = (gathered * weights[None]).sum(dim=-1).T
-    return torch.where((elements >= 0)[:, None], vals, 0.0)
+    vals = torch.where((elements < 0)[:, None], 0.0, vals)
+    return torch.where((elements >= E)[:, None], float("nan"), vals)
 
 
 def _check(what, device, expect):
@@ -96,8 +102,9 @@ def polish_pairs(points, ids, ref0, ctr, inv_scale, nodes64, order: int,
     ref0 [M, d] f32; per element ``ctr`` [E, d] f64, ``inv_scale`` [E]
     f64 and the f64 unit-frame lattice ``nodes64`` [E, n*d].  Returns
     (ref_hi [M, d] f32, ref_lo [M, d] f32, ok [M] bool): ok is False where
-    a step reached ``STEP_GUARD`` or was not finite.  CUDA tensors launch
-    K4, CPU tensors run the twin."""
+    a step reached ``STEP_GUARD`` or was not finite; an id outside
+    [0, E) gives NaN refs, not ok.  CUDA tensors launch K4 on the rows
+    grouped by element, CPU tensors run the twin."""
     M = points.shape[0]
     E = ctr.shape[0]
     _check("polish_pairs", points.device, {
@@ -112,17 +119,28 @@ def polish_pairs(points, ids, ref0, ctr, inv_scale, nodes64, order: int,
     if not _kernel_device("polish_pairs", device, order, dim):
         return polish_pairs_ref(points, ids, ref0, ctr, inv_scale, nodes64,
                                 order, dim, iters)
+    if M == 0:
+        hi = torch.empty((0, dim), dtype=torch.float32, device=device)
+        return hi, hi.clone(), torch.empty(0, dtype=torch.bool, device=device)
+    return _polish_kernel(group_rows(ids, E), points, ids, ref0, ctr,
+                          inv_scale, nodes64, order, dim, iters)
+
+
+def _polish_kernel(perm, points, ids, ref0, ctr, inv_scale, nodes64,
+                   order: int, dim: int, iters: int):
+    """Launch K4 over the rows in the order ``perm`` [M] int32 gives (any
+    permutation gives the same bits; ``group_rows``' grouping makes it
+    fast) on checked CUDA tensors."""
+    M, E, device = points.shape[0], ctr.shape[0], points.device
     ref_hi = torch.empty((M, dim), dtype=torch.float32, device=device)
     ref_lo = torch.empty_like(ref_hi)
     ok = torch.empty((M,), dtype=torch.bool, device=device)
-    if M == 0:
-        return ref_hi, ref_lo, ok
     lib = _build.library()
     err = lib.mmt_polish_pairs(
-        points.data_ptr(), ids.data_ptr(), ref0.data_ptr(), ctr.data_ptr(),
-        inv_scale.data_ptr(), nodes64.data_ptr(), M, E, order, dim, iters,
-        ref_hi.data_ptr(), ref_lo.data_ptr(), ok.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        points.data_ptr(), ids.data_ptr(), perm.data_ptr(), ref0.data_ptr(),
+        ctr.data_ptr(), inv_scale.data_ptr(), nodes64.data_ptr(), M, E,
+        order, dim, iters, ref_hi.data_ptr(), ref_lo.data_ptr(),
+        ok.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(lib, err, "polish_pairs")
     polish_pairs.launches += 1
@@ -132,8 +150,8 @@ def polish_pairs(points, ids, ref0, ctr, inv_scale, nodes64, order: int,
 def apply_pairs(ref_hi, ref_lo, elements, fields, order: int, dim: int):
     """Interpolated values [M, F] f64 at the pair refs ``ref_hi + ref_lo``
     ([M, d] f32 each) in elements [M] int32 of the f64 ``fields`` [F, E,
-    n]; element -1 gives 0.  CUDA tensors launch K5, CPU tensors run the
-    twin."""
+    n]; element -1 gives 0, an id >= E NaN.  CUDA tensors launch K5 on the
+    rows grouped by element, CPU tensors run the twin."""
     M = ref_hi.shape[0]
     F, E = fields.shape[:2]
     _check("apply_pairs", ref_hi.device, {
@@ -145,14 +163,24 @@ def apply_pairs(ref_hi, ref_lo, elements, fields, order: int, dim: int):
     device = ref_hi.device
     if not _kernel_device("apply_pairs", device, order, dim):
         return apply_pairs_ref(ref_hi, ref_lo, elements, fields, order, dim)
-    out = torch.empty((M, F), dtype=torch.float64, device=device)
     if M == 0 or F == 0:
-        return out
+        return torch.empty((M, F), dtype=torch.float64, device=device)
+    return _apply_kernel(group_rows(elements, E), ref_hi, ref_lo, elements,
+                         fields, order, dim)
+
+
+def _apply_kernel(perm, ref_hi, ref_lo, elements, fields, order: int,
+                  dim: int):
+    """Launch K5 over the rows in the order ``perm`` [M] int32 gives (any
+    permutation gives the same bits; ``group_rows``' grouping makes it
+    fast) on checked CUDA tensors."""
+    M, (F, E) = ref_hi.shape[0], fields.shape[:2]
+    out = torch.empty((M, F), dtype=torch.float64, device=ref_hi.device)
     lib = _build.library()
     err = lib.mmt_apply_pairs(
         ref_hi.data_ptr(), ref_lo.data_ptr(), elements.data_ptr(),
-        fields.data_ptr(), M, E, F, order, dim, out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        perm.data_ptr(), fields.data_ptr(), M, E, F, order, dim,
+        out.data_ptr(), torch.cuda.current_stream(ref_hi.device).cuda_stream,
     )
     _build.check(lib, err, "apply_pairs")
     apply_pairs.launches += 1

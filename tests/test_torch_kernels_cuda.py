@@ -306,10 +306,10 @@ def test_scan_retry_on_card_matches_plain_path(dev):
         <= 1e-5
 
 
-def _polish_rows(dev, order, dim, M, seed):
+def _polish_rows(dev, order, dim, M, seed, shape_=None):
     """Known refs in a warped box mesh, the f64 points they map to, and
     f32 warm starts 3e-6 off: the polish's arguments and the true refs."""
-    shape_ = (6, 6, 6) if dim == 3 else (20, 20)
+    shape_ = shape_ or ((6, 6, 6) if dim == 3 else (20, 20))
     mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
     prep = tloc._mesh_prep(mesh.points, order, dev, want64=True)
     rng = np.random.default_rng(seed)
@@ -350,6 +350,130 @@ def test_polish_kernel_bad_ids_give_nan(dev):
     hi, lo, ok = polish.polish_pairs(args[0], ids, *args[2:], 1)
     assert torch.isnan(hi[:2]).all() and torch.isnan(lo[:2]).all()
     assert not ok[:3].any() and ok[3:].all()
+
+
+def _bits(t):
+    """The tensor's bits, so that equal NaNs compare equal."""
+    kind = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.view(kind.get(t.dtype, t.dtype))
+
+
+def _row_order(dev, ids, rows):
+    """A row order: ``presorted`` by element or ``shuffled``."""
+    if rows == "presorted":
+        return torch.sort(ids, stable=True).indices
+    return torch.randperm(ids.shape[0], device=dev)
+
+
+@pytest.mark.parametrize("rows", ["shuffled", "presorted"])
+@pytest.mark.parametrize("order,dim", [(1, 2), (1, 3), (2, 2), (2, 3),
+                                       (4, 2), (4, 3)])
+def test_polish_kernel_grouped_rows_match_twin(dev, order, dim, rows):
+    """K4 on grouped rows (20,003 of them: not a multiple of a block,
+    ids -1 and E among them), shuffled or presorted by element: ok equal
+    to the twin's on every row, hi + lo to 1e-11 and within 1e-10 of the
+    known refs, NaN where the id is bad; the same rows in another order
+    give bitwise the permuted results."""
+    args, refs = _polish_rows(dev, order, dim, 20_003, seed=order * dim)
+    args = list(args)
+    E = args[3].shape[0]
+    args[1][:6] = torch.tensor([-1, E, -1, E, E + 5, -1], dtype=torch.int32)
+    order_ = _row_order(dev, args[1], rows)
+    args[0], args[1], args[2] = (a[order_].contiguous() for a in args[:3])
+    refs = refs[order_]
+    bad = (args[1] < 0) | (args[1] >= E)
+    hi, lo, ok = polish.polish_pairs(*args, 1)
+    p_hi, p_lo, p_ok = polish.polish_pairs_ref(*args, 1)
+    assert torch.equal(ok, p_ok) and torch.equal(ok, ~bad)
+    assert torch.isnan(hi[bad]).all() and torch.isnan(lo[bad]).all()
+    got, want = hi.double() + lo.double(), p_hi.double() + p_lo.double()
+    assert float((got - want)[~bad].abs().max()) <= 1e-11
+    assert float((got - refs)[~bad].abs().max()) < 1e-10
+    back = torch.argsort(order_)
+    again = polish.polish_pairs(*(a[back].contiguous() for a in args[:3]),
+                                *args[3:], 1)
+    for x, y in zip(again, (hi, lo, ok)):
+        assert torch.equal(_bits(x[order_]), _bits(y))
+
+
+@pytest.mark.parametrize("order,dim", [(4, 3), (2, 3)])
+def test_polish_kernel_slot_overflow_matches_slotted(dev, order, dim):
+    """Rows whose element finds no shared-memory slot read the lattice
+    from global memory with the same arithmetic: K4 driven through the
+    identity permutation on random rows of 1,728 elements (~120 distinct
+    elements a block, past the 10 or 50 slots) gives bitwise the grouped
+    launch's results."""
+    args, refs = _polish_rows(dev, order, dim, 20_000, seed=11,
+                              shape_=(12, 12, 12))
+    grouped = polish.polish_pairs(*args, 1)
+    ident = torch.arange(20_000, dtype=torch.int32, device=dev)
+    plain_order = polish._polish_kernel(ident, *args, 1)
+    torch.cuda.synchronize()
+    for x, y in zip(plain_order, grouped):
+        assert torch.equal(_bits(x), _bits(y))
+    assert grouped[2].all()
+    assert float((grouped[0].double() + grouped[1].double() - refs)
+                 .abs().max()) < 1e-10
+
+
+def _apply_rows(dev, order, dim, M, F, seed, shape_=None):
+    """Random pair refs in random elements of a warped box mesh and F
+    smooth fields: apply_pairs' arguments."""
+    shape_ = shape_ or ((6, 6, 6) if dim == 3 else (20, 20))
+    mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
+    rng = np.random.default_rng(seed)
+    base = testing.smooth_field(mesh.points)
+    fields = torch.as_tensor(np.stack([base * (1 + 0.1 * f) + f
+                                       for f in range(F)]), device=dev)
+    refs = rng.uniform(-1, 1, (M, dim))
+    hi = torch.as_tensor(refs.astype(np.float32), device=dev)
+    lo = (torch.as_tensor(refs, device=dev) - hi.double()).float()
+    el = torch.as_tensor(rng.integers(0, mesh.nelem, M, dtype=np.int32),
+                         device=dev)
+    return [hi, lo, el, fields, order, dim]
+
+
+@pytest.mark.parametrize("rows", ["shuffled", "presorted"])
+@pytest.mark.parametrize("F", [1, 7])
+def test_apply_kernel_grouped_rows_match_twin(dev, F, rows):
+    """K5 on grouped rows (50,001 of them, ids -1 and E among them),
+    shuffled or presorted by element, F = 1 or 7 parameters: relative
+    1e-12 to the twin, 0 for -1 and NaN for E; the same rows in another
+    order give bitwise the permuted results."""
+    args = _apply_rows(dev, 4, 3, 50_001, F, seed=F)
+    E = args[3].shape[1]
+    args[2][::97] = -1
+    args[2][5::101] = E
+    order_ = _row_order(dev, args[2], rows)
+    args[:3] = [a[order_].contiguous() for a in args[:3]]
+    el = args[2]
+    got = polish.apply_pairs(*args)
+    want = polish.apply_pairs_ref(*args)
+    assert got.shape == (50_001, F)
+    assert (got[el < 0] == 0).all() and torch.isnan(got[el >= E]).all()
+    good = (el >= 0) & (el < E)
+    assert float(((got - want).abs() / want.abs().clamp_min(1e-12))[good]
+                 .max()) <= 1e-12
+    back = torch.argsort(order_)
+    again = polish.apply_pairs(*(a[back].contiguous() for a in args[:3]),
+                               *args[3:])
+    assert torch.equal(_bits(again[order_]), _bits(got))
+
+
+def test_apply_kernel_slot_overflow_matches_slotted(dev):
+    """K5 driven through the identity permutation on random rows of 1,728
+    elements (~120 distinct elements a block, past the 32 slots of order
+    4, 3-D) gives bitwise the grouped launch's results, and matches the
+    twin."""
+    args = _apply_rows(dev, 4, 3, 20_000, 3, seed=12, shape_=(12, 12, 12))
+    grouped = polish.apply_pairs(*args)
+    ident = torch.arange(20_000, dtype=torch.int32, device=dev)
+    plain_order = polish._apply_kernel(ident, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(plain_order), _bits(grouped))
+    want = polish.apply_pairs_ref(*args)
+    assert float(((grouped - want).abs() / want.abs().clamp_min(1e-12))
+                 .max()) <= 1e-12
 
 
 @pytest.mark.parametrize("order,dim", [(2, 3), (4, 2), (4, 3)])

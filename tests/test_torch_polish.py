@@ -139,6 +139,114 @@ def test_apply_twin_matches_jax_ref_and_f64(order, dim, M):
                                   got[ids_missing >= 0])
 
 
+ORDER_DIMS = [(o, d) for o in polish.ORDERS for d in (2, 3)]
+
+
+def _clustered_and_shuffled(M, seed, E=4):
+    """Ids in runs of M // E rows per element, as the card's grouping
+    leaves them, and a permutation of the rows (numpy)."""
+    rng = np.random.default_rng(seed)
+    return np.repeat(np.arange(E, dtype=np.int32), M // E), rng.permutation(M)
+
+
+@pytest.mark.parametrize("order,dim", ORDER_DIMS)
+def test_polish_row_order_contract(order, dim):
+    """The row-order contract, on the CPU where ``polish_pairs`` runs its
+    twin: on rows clustered by element, as the card's grouping leaves
+    them, and on the same rows shuffled, it gives the same rows bit for
+    bit, and both agree with the JAX df32 reference to 1e-10 (and with
+    the true refs).  The grouped kernel is held to the same contract on
+    the card (``test_torch_kernels_cuda.py``)."""
+    E, M = 4, 256
+    ids, shuffle = _clustered_and_shuffled(M, seed=50 + order + dim, E=E)
+    rng = np.random.default_rng(60 + order + dim)
+    elem_nodes = _build_geometry(order, dim, E, rng)
+    refs_true = rng.uniform(-0.95, 0.95, (M, dim))
+    points = tshape.forward_map(order, torch.from_numpy(elem_nodes[ids]),
+                                torch.from_numpy(refs_true)).numpy()
+    ref0 = (refs_true + rng.uniform(-3e-6, 3e-6, (M, dim))).astype(
+        np.float32)
+    got = polish.polish_pairs(
+        *_port_args(elem_nodes, ids, points, ref0, order, dim), iters=1)
+    got_s = polish.polish_pairs(
+        *_port_args(elem_nodes, ids[shuffle], points[shuffle],
+                    ref0[shuffle], order, dim), iters=1)
+    for x, y in zip(got, got_s):
+        assert torch.equal(x[torch.from_numpy(shuffle)], y)
+    hi, lo, ok = got
+    pair = hi.double().numpy() + lo.double().numpy()
+    p_hi = points.astype(np.float32)
+    p_lo = (points - p_hi.astype(np.float64)).astype(np.float32)
+    with jax.disable_jit():
+        j_hi, j_lo, j_ok = pd32.polish_pairs_ref(
+            jnp.asarray(p_hi), jnp.asarray(p_lo), jnp.asarray(ids),
+            jnp.asarray(ref0), *_prep_split(elem_nodes, order, dim),
+            order=order, dim=dim, iters=1)
+    want = np.asarray(j_hi, np.float64) + np.asarray(j_lo, np.float64)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(j_ok))
+    assert ok.all()
+    assert np.abs(pair - want).max() < 1e-10
+    assert np.abs(pair - refs_true).max() < 1e-10
+
+
+@pytest.mark.parametrize("order,dim", ORDER_DIMS)
+def test_apply_row_order_contract(order, dim):
+    """As for the polish, on the CPU's twin: ``apply_pairs`` on rows
+    clustered by element and on the same rows shuffled gives the same
+    rows bit for bit, and both agree with the JAX df32 reference to 1e-11
+    relative (the grouped kernel: ``test_torch_kernels_cuda.py``)."""
+    E, M = 4, 256
+    ids, shuffle = _clustered_and_shuffled(M, seed=70 + order + dim, E=E)
+    rng = np.random.default_rng(80 + order + dim)
+    elem_nodes = _build_geometry(order, dim, E, rng)
+    # kept away from 0, where a relative error means nothing
+    fields = np.stack([
+        2.0 + np.sin(elem_nodes[..., 0] / 2e5)
+        + (0.3 + 0.1 * f) * np.cos(elem_nodes[..., dim - 1] / 3e5)
+        for f in range(3)])  # [F, E, n]
+    refs = rng.uniform(-0.999, 0.999, (M, dim))
+    ref_hi = refs.astype(np.float32)
+    ref_lo = (refs - ref_hi.astype(np.float64)).astype(np.float32)
+
+    def apply(rows):
+        return polish.apply_pairs(
+            torch.from_numpy(ref_hi[rows]), torch.from_numpy(ref_lo[rows]),
+            torch.from_numpy(ids[rows]), torch.from_numpy(fields), order,
+            dim)
+
+    got = apply(np.arange(M))
+    assert torch.equal(got[torch.from_numpy(shuffle)], apply(shuffle))
+    rows_hi, rows_lo = pd32.prepare_field_rows(jnp.asarray(fields), order,
+                                               dim)
+    with jax.disable_jit():
+        vh, vl = pd32.apply_pairs_ref(
+            jnp.asarray(ref_hi), jnp.asarray(ref_lo),
+            rows_hi[jnp.asarray(ids)], rows_lo[jnp.asarray(ids)],
+            order=order, dim=dim, n_params=3)
+    want = np.asarray(vh, np.float64) + np.asarray(vl, np.float64)
+    scale = np.maximum(np.abs(want), 1e-12)
+    assert np.max(np.abs(got.numpy() - want) / scale) < 1e-11
+
+
+def test_twins_honour_the_bad_id_contract():
+    """The twins give what the kernels give for ids outside [0, E): the
+    polish NaN refs and not ok, the apply 0 for -1 and NaN for E."""
+    order, dim = 2, 3
+    elem_nodes, ids, _, points, ref0 = _polish_case(order, dim, 8, seed=9)
+    args = list(_port_args(elem_nodes, ids, points, ref0, order, dim))
+    E = elem_nodes.shape[0]
+    args[1] = args[1].clone()
+    args[1][:2] = torch.tensor([-1, E], dtype=torch.int32)
+    hi, lo, ok = polish.polish_pairs(*args, iters=1)
+    assert torch.isnan(hi[:2]).all() and torch.isnan(lo[:2]).all()
+    assert not ok[:2].any() and ok[2:].all()
+    fields = torch.ones((2, E, 27), dtype=torch.float64)
+    vals = polish.apply_pairs(hi[2:5], lo[2:5], torch.tensor(
+        [-1, E, 0], dtype=torch.int32), fields, order, dim)
+    assert (vals[0] == 0).all() and torch.isnan(vals[1]).all()
+    assert torch.allclose(vals[2], torch.ones(2, dtype=torch.float64))
+
+
 def test_wrappers_run_the_twins_on_cpu():
     """CPU tensors run the twins (identical results, no launch counted)."""
     order, dim = 2, 3
