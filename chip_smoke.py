@@ -29,35 +29,54 @@ each on stdout:
    ``use_aabb``, ``prefilter_m=4``, ``accept_tol=1.04``, df32 polish;
    the retried rows against the plain path; then 1M of those targets
    through ``strategy="scan"`` and its trilinear prefilter (K1 at order
-   1).
+   1);
+9. the file path: ``api.gll_2_gll`` file to file at the ``gll_file``
+   configuration -- the same source with VP, VS, RHO and z_node_1D onto
+   an order-4 shell target of 79,402 elements (9,925,250 GLL slots,
+   ~5.2M unique points) -- first, warm, from a ``stored_array`` cache,
+   with ``MMT_DF32_POLISH=1`` and once under ``MMT_PROFILE=1`` for the
+   stage seconds (a first and a warm call); every written parameter
+   against its analytic value, the calls bit for bit against each other
+   and against the operator built and applied in memory (f32 and
+   polished), and K5 against its twin on the polished operator's own
+   rows with the file's 4 fields, in the apply's chunks.  Without ``h5py`` (decided by the import alone)
+   the same arrays go through ``engine.transfer_arrays`` with a numpy
+   sink, and the line says ``"h5py": false``.
 
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
-slice's run; the times of K1, K4 and K5 include their grouping
-pre-pass, also timed alone as ``group_ms``, and K4's and K5's kernel
-alone as ``kernel_ms``) and, last, the ``{"ok": true, ...}`` line.  Any
+slice's run and, as ``launches_file``, in the file path's df32 call,
+K5 also with ``max_rel_diff_file`` against its twin on that call's
+inputs; the times of K1, K4 and K5 include their grouping pre-pass,
+also timed alone as ``group_ms``, and K4's and K5's kernel alone as
+``kernel_ms``) and, last, the ``{"ok": true, ...}`` line.  Any
 failed check raises: the script exits non-zero and prints no ``ok``
 line, as it does without a CUDA device.
 
     python3 chip_smoke.py --profile
 
 runs phase 1 and then, instead of the checks, times the slice, df32
-slice, f64_polish slice, flagship and scan runs warm and profiles each
-once with ``torch.profiler`` (see ``profile``).
+slice, f64_polish slice, flagship, scan and file runs warm and profiles
+each once with ``torch.profiler`` (see ``profile``).
 """
 import argparse
 import dataclasses
 import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from multimesh_tpu_torch import TransferOperator, _build, testing
+from multimesh_tpu_torch import (TransferOperator, _build, engine, testing,
+                                 utils_profile)
 from multimesh_tpu_torch.config import LocateConfig, Precision
+from multimesh_tpu_torch.ops import dedup
 from multimesh_tpu_torch.search import locate as _locate
 from multimesh_tpu_torch.core import shape
 from multimesh_tpu_torch.search import knn, nearest, newton, polish
@@ -74,6 +93,11 @@ DF32_CFG = dataclasses.replace(SLICE_CFG, df32_polish=True)
 FLAGSHIP_CFG = dataclasses.replace(DF32_CFG, accept_tol=1.04)
 FLAGSHIP_KW = dict(fallback="fixed_ref", use_aabb=True, prefilter_m=4)
 N_SCAN = 1_000_000  # targets of the strategy="scan" run
+APPLY_CHUNK = 1_048_576  # rows of one apply chunk (TransferOperator.apply)
+# the file path reads and writes HDF5 where h5py is installed; where it is
+# not, the same arrays take engine.transfer_arrays with a numpy sink
+HAVE_H5PY = importlib.util.find_spec("h5py") is not None
+FILE_PARAMS = ("VP", "VS", "RHO")
 # published peaks of one H100 SXM (NVIDIA's data sheet; at 700 W): f32 and
 # f64 outside the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -530,7 +554,7 @@ def phase_apply(dev, src, fields):
                            args[2], src.nelem)
     plain_ms = cuda_ms(lambda: polish.apply_pairs_ref(*args), 3)
     bound_ms, bound_by = _apply_bound(args, got)
-    big = _apply_args(dev, src, fields, 1_048_576, seed=41)
+    big = _apply_args(dev, src, fields, APPLY_CHUNK, seed=41)
     rel_1m, zeros_1m, _, got_1m = _apply_rel(big)
     times_1m = {f"{k}_1m": v for k, v in _grouped_times(
         polish.apply_pairs, polish._apply_kernel, big, big[2],
@@ -541,7 +565,7 @@ def phase_apply(dev, src, fields):
           "plain_ms": plain_ms, "bound_ms": bound_ms,
           "bound_share": bound_ms / times["ms"],
           "bound_ms_direct": _apply_bound(args, got, direct=True)[0],
-          "rows_1m": 1_048_576,
+          "rows_1m": APPLY_CHUNK,
           "max_rel_diff_1m": rel_1m, **times_1m, "bound_ms_1m": bound_1m,
           "bound_share_1m": bound_1m / times_1m["ms_1m"]})
     check(rel <= 1e-12, f"K5 values differ by {rel:.3g} relative")
@@ -753,16 +777,255 @@ def phase_flagship(dev, src, pts, fields):
     return scan_launches["newton_rows_order1"]
 
 
-def profile(dev, src, pts_d, fields, targets):
-    """``--profile``: per run of the time breakdown in PERF.md, one
-    warm-up, three timed warm walls and one run under ``torch.profiler``;
+def file_target():
+    """The ``gll_file`` target: an order-4 shell of 37 x 37 x 58 = 79,402
+    elements (9,925,250 GLL slots) strictly inside the source."""
+    return testing.shell_mesh(n_lat=37, n_lon=37, n_rad=58, order=4,
+                              r_inner=3.7e6, r_outer=6.2e6,
+                              lat_extent=(0.58, 1.12),
+                              lon_extent=(0.38, 1.32))
+
+
+class FileCase:
+    """One source / target pair of the file path: the source with the
+    ``smooth`` field, the target with the ``linear`` one (so a target left
+    unwritten cannot pass).  With ``h5py`` both are Salvus HDF5 files
+    under ``tmpdir`` and ``run`` drives ``api.gll_2_gll`` on them, the
+    target restored from a pristine copy first; without it ``run`` drives
+    ``engine.transfer_arrays`` on the arrays the files would hold, with a
+    numpy sink."""
+
+    def __init__(self, src, tgt, tmpdir, dev, have_h5py=HAVE_H5PY):
+        self.src, self.tgt, self.dev = src, tgt, dev
+        self.tmpdir, self.have_h5py = tmpdir, have_h5py
+        s_nodal, _ = testing.salvus_fixture_fields(src, FILE_PARAMS)
+        t_nodal, t_elem = testing.salvus_fixture_fields(
+            tgt, FILE_PARAMS, field_kind="linear")
+        self.params = list(s_nodal)
+        self.src_data = np.stack(list(s_nodal.values()), axis=1)
+        if have_h5py:
+            self.f_src = os.path.join(tmpdir, "src.h5")
+            self.f_tgt0 = os.path.join(tmpdir, "tgt_pristine.h5")
+            self.f_tgt = os.path.join(tmpdir, "tgt.h5")
+            testing.write_salvus_fixture(self.f_src, src, FILE_PARAMS)
+            testing.write_salvus_fixture(self.f_tgt0, tgt, FILE_PARAMS,
+                                         field_kind="linear")
+        else:
+            self.old_values = np.stack(list(t_nodal.values()), axis=1)
+            self.solid = ~t_elem["fluid"].astype(bool)
+
+    def run(self, **kw):
+        """One transfer: (returned values, written values, written
+        labels, wall seconds); the wall ends after a device sync and
+        leaves out restoring the target and reading it back."""
+        if self.have_h5py:
+            import h5py
+
+            from multimesh_tpu_torch import api
+            from multimesh_tpu_torch.io import salvus as sio
+
+            shutil.copyfile(self.f_tgt0, self.f_tgt)
+            t0 = time.perf_counter()
+            values = api.gll_2_gll(self.f_src, self.f_tgt, device=self.dev,
+                                   **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with h5py.File(self.f_tgt, "r") as f:
+                return (values, f["MODEL/data"][()],
+                        sio.read_dim_labels(f["MODEL/data"]), wall)
+        sink = {}
+
+        def open_sink(params):
+            sink["labels"] = list(params)
+            sink["data"] = np.full(
+                (self.tgt.nelem, len(params), self.tgt.n_gll), np.nan)
+            return sink["data"]
+
+        t0 = time.perf_counter()
+        values = engine.transfer_arrays(
+            self.src.points, self.src_data, self.params, self.tgt.points,
+            self.old_values, self.solid, open_sink, device=self.dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return values, sink["data"], sink["labels"], wall
+
+
+def clear_caches():
+    """The in-process caches a first call finds empty: the dedup's (host
+    and device) and the mesh prep's."""
+    dedup._UNIQ_CACHE.clear()
+    dedup._UNIQ_DEV_CACHE.clear()
+    _locate._PREP_CACHE.clear()
+
+
+def phase_file(case, smi):
+    """The file path at the ``gll_file`` configuration (see the module
+    docstring).  Returns the launch counts of its df32 call and K5's
+    largest relative difference from its twin on that call's inputs."""
+    dev, src, tgt = case.dev, case.src, case.tgt
+    n_slots = tgt.nelem * tgt.n_gll
+    # every written parameter's analytic value, [E, P, n]: VP, VS, RHO
+    # scaled copies of the smooth field, z_node_1D the radius fraction
+    truth = np.stack(list(testing.salvus_fixture_fields(
+        tgt, FILE_PARAMS)[0].values()), axis=1)
+    fields = torch.as_tensor(
+        np.ascontiguousarray(np.moveaxis(case.src_data, 1, 0)), device=dev)
+
+    def rel_errs(written):
+        """Max relative error of each parameter."""
+        return [float(x) for x in np.max(
+            np.abs(written - truth) / np.abs(truth), axis=(0, 2))]
+
+    def in_memory(uniq, recon):
+        """``gll_2_gll``'s operator built on the unique points and applied
+        in memory on the card (with the polish where MMT_DF32_POLISH=1):
+        the operator and its expanded values as the file holds them."""
+        op = TransferOperator.build(
+            src.points, uniq, order=src.order,
+            cfg=engine._locate_cfg(20, accept_tol=1.04), device=dev,
+            **FLAGSHIP_KW)
+        mem = op.apply(fields)[torch.as_tensor(recon, device=dev)]
+        mem = mem.view(tgt.nelem, tgt.n_gll, -1).permute(0, 2, 1).double()
+        return op, mem.cpu().numpy()
+
+    # (a) first: kernels built and allocator warm, caches empty
+    clear_caches()
+    reset_launches()
+    vals_a, wr_a, labels, wall_first = case.run()
+    launches_a = read_launches()
+    check(labels == list(FILE_PARAMS) + ["z_node_1D"], f"labels {labels}")
+    check(wr_a.dtype == np.float64
+          and wr_a.shape == (tgt.nelem, len(case.params), tgt.n_gll),
+          f"written {wr_a.dtype} {wr_a.shape}")
+    check(np.array_equal(vals_a, wr_a), "returned values differ from the "
+          "written ones")
+    del vals_a
+    rel_a = rel_errs(wr_a)
+    check(max(rel_a) < 1e-6, f"file path max rel errs {rel_a} >= 1e-6")
+    check(launches_a["newton_rows"] > 0 and launches_a["nearest_centroid"]
+          > 0, f"a kernel of the file path was not launched: {launches_a}")
+
+    # (b) warm: the same call again, the in-process caches filled
+    _, wr, _, wall_warm = case.run()
+    check(np.array_equal(wr, wr_a), "the warm call differs from the first")
+
+    # (c) stored hit: once to save, once to load (timed)
+    stored = os.path.join(case.tmpdir, "stored")
+    _, wr, _, wall_save = case.run(stored_array=stored)
+    check(np.array_equal(wr, wr_a), "the saving call differs from the first")
+    check(os.path.exists(os.path.join(stored, "recon.npy")),
+          "the stored operator has no recon.npy")
+    reset_launches()
+    _, wr, _, wall_hit = case.run(stored_array=stored)
+    check(np.array_equal(wr, wr_a), "the stored hit differs from the first")
+    check(read_launches()["newton_rows"] == 0,
+          "the stored hit located again")
+    del wr
+
+    # the operator built and applied in memory, on the card
+    uniq, recon = dedup.unique_points_cached(tgt.points, order_by="first")
+    op, mem = in_memory(uniq, recon)
+    check(np.array_equal(mem, wr_a),
+          "the file's values differ from the in-memory operator's")
+    n_unique, num_missing, n_retry = len(uniq), op.num_missing, op.n_retry
+    del mem, op, wr_a
+
+    # (d) df32: MMT_DF32_POLISH=1 around the call, then the polished
+    # operator in memory
+    os.environ["MMT_DF32_POLISH"] = "1"
+    try:
+        reset_launches()
+        _, wr_d, _, wall_df32 = case.run()
+        launches_d = read_launches()
+        op, mem = in_memory(uniq, recon)
+    finally:
+        del os.environ["MMT_DF32_POLISH"]
+    rel_d = rel_errs(wr_d)
+    check(max(rel_d) < 1e-8, f"df32 file path max rel errs {rel_d} >= 1e-8")
+    check(all(launches_d[k] > 0 for k in ("newton_rows", "nearest_centroid",
+                                          "polish_pairs", "apply_pairs")),
+          f"a kernel of the df32 file path was not launched: {launches_d}")
+    check(np.array_equal(mem, wr_d), "the df32 file's values differ from "
+          "the in-memory polished operator's")
+    del mem, wr_d
+    # K5 against its twin at the file path's own inputs: the polished
+    # operator's pair refs and elements and the file's 4 fields, in the
+    # chunks apply launches it on
+    k5_rows, k5_rel = [], []
+    for s in range(0, op.n_points, APPLY_CHUNK):
+        e = s + APPLY_CHUNK
+        rel, zeros, _, _ = _apply_rel(
+            (op.refs[s:e].float(), op.refs_lo[s:e], op.elements[s:e],
+             fields, src.order, 3))
+        k5_rows.append(int(op.elements[s:e].shape[0]))
+        k5_rel.append(rel)
+        check(rel <= 1e-12 and zeros, f"K5 on the file's rows {s}:{e}, "
+              f"{fields.shape[0]} fields, differs by {rel:.3g} relative")
+    check(len(k5_rows) == launches_d["apply_pairs"],
+          f"K5 chunks {k5_rows} != launches {launches_d['apply_pairs']}")
+    del op
+
+    # (e) the stage seconds of a first call (caches emptied) and of a
+    # warm one after it, under MMT_PROFILE=1; its device syncs serialise
+    # the stages, so each call's own wall goes beside its stages
+    clear_caches()
+    os.environ["MMT_PROFILE"] = "1"
+    try:
+        utils_profile.reset_stages()
+        wall_prof_first = case.run()[3]
+        stages = utils_profile.stage_totals()
+        utils_profile.reset_stages()
+        wall_prof_warm = case.run()[3]
+        stages_warm = utils_profile.stage_totals()
+    finally:
+        del os.environ["MMT_PROFILE"]
+    # the pinned host buffer stream_write allocates in every call
+    # (engine._start_pull): torch keeps freed pinned blocks, so the first
+    # of two buffers held together takes the block the calls above left
+    # and the second has to be pinned anew
+    pinned_s, held = {}, []
+    for kind in ("cached", "fresh"):
+        t0 = time.perf_counter()
+        held.append(torch.empty((n_unique, len(case.params)),
+                                dtype=torch.float32, pin_memory=True))
+        pinned_s[kind] = time.perf_counter() - t0
+    del held
+    want = {"g2g.fingerprint", "g2g.dedup", "g2g.apply", "g2g.stream_write"}
+    if case.have_h5py:
+        want |= {"g2g.read_source", "g2g.read_target"}
+    check(want <= set(stages), f"stages {sorted(stages)}")
+
+    emit({"phase": "file", "h5py": case.have_h5py, "nvidia_smi": smi,
+          "n_slots": n_slots, "n_unique": n_unique,
+          "elements": src.nelem, "params": len(case.params),
+          "wall_first_s": wall_first, "wall_warm_s": wall_warm,
+          "wall_stored_save_s": wall_save, "wall_stored_hit_s": wall_hit,
+          "wall_df32_s": wall_df32,
+          "mslots_per_s_first": n_slots / wall_first / 1e6,
+          "mslots_per_s_warm": n_slots / wall_warm / 1e6,
+          "stages_s": stages, "wall_profiled_first_s": wall_prof_first,
+          "stages_warm_s": stages_warm,
+          "wall_profiled_warm_s": wall_prof_warm,
+          "pinned_alloc_s": pinned_s, "parameters": case.params,
+          "max_rel_err": rel_a, "max_rel_err_df32": rel_d,
+          "k5_file_rows": k5_rows, "k5_file_params": int(fields.shape[0]),
+          "k5_file_max_rel_diff": k5_rel, "num_missing": num_missing,
+          "n_retry": n_retry, "launches_first": launches_a,
+          "launches_df32": launches_d})
+    return launches_d, max(k5_rel)
+
+
+def profile(dev, src, pts_d, fields, targets, case):
+    """``--profile``: per run of the time breakdown in PERF.md (the
+    slices, the flagship options, the scan and the file path's
+    ``case.run``), one warm-up, three timed warm walls and one run under
+    ``torch.profiler``;
     one JSON line each with the walls, the device time of all kernels of
     the profiled run, the busy share (that device time over the mean warm
     wall), the eight kernels with the most device time and every kernel
-    of ``PORT_KERNELS`` (name, ms, launches)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
+    of ``PORT_KERNELS`` (name, ms, launches).  The profiled run goes
+    through ``utils_profile.trace``, whose chrome trace lands in the
+    temporary directory and goes with it."""
     tgt_d = torch.as_tensor(targets, device=dev)
 
     def transfer(t, cfg, **kw):
@@ -776,6 +1039,7 @@ def profile(dev, src, pts_d, fields, targets):
             fallback="snap"),
         "flagship options": transfer(tgt_d, FLAGSHIP_CFG, **FLAGSHIP_KW),
         "scan, 1M targets": lambda: run_scan(src, tgt_d, dev),
+        "file": case.run,
     }
     for name, fn in runs.items():
         walls = []
@@ -786,8 +1050,8 @@ def profile(dev, src, pts_d, fields, targets):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         walls = walls[1:]
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
+        with utils_profile.trace(
+                os.path.join(case.tmpdir, "trace", name)) as prof:
             fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
@@ -825,7 +1089,9 @@ def main():
         np.stack([base * (1 + 0.1 * i) for i in range(3)]), device=dev)
     pts_d = torch.as_tensor(pts, device=dev)
     if args.profile:
-        profile(dev, src, pts_d, fields, lifted_targets(pts)[0])
+        with tempfile.TemporaryDirectory() as tmpdir:
+            profile(dev, src, pts_d, fields, lifted_targets(pts)[0],
+                    FileCase(src, file_target(), tmpdir, dev))
         return 0
     centroids = torch.as_tensor(src.points.mean(axis=1), device=dev)
     truth = torch.as_tensor(testing.smooth_field(pts), device=dev)
@@ -837,11 +1103,17 @@ def main():
     phase_slice(dev, src, pts_d, fields, truth)
     launches = phase_df32_slice(dev, src, pts_d, fields, truth)
     order1 = phase_flagship(dev, src, pts, fields)
+    del pts, pts_d, truth, fields
+    with tempfile.TemporaryDirectory() as tmpdir:
+        launches_file, k5["max_rel_diff_file"] = phase_file(
+            FileCase(src, file_target(), tmpdir, dev), smi)
 
-    # launches of the df32 slice's run; K1's order-1 ones of the scan's
+    # launches of the df32 slice's run and of the file path's df32 call;
+    # K1's order-1 ones of the scan's
     for entry, name in ((k1, "newton_rows"), (k2, "nearest_centroid"),
                         (k4, "polish_pairs"), (k5, "apply_pairs")):
         entry["launches"] = launches[name]
+        entry["launches_file"] = launches_file[name]
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
     k1["launches_order1"] = order1
     print(smi, flush=True)

@@ -12,6 +12,11 @@ Main path::
     op = TransferOperator.build(source_nodes, targets, order=4,
                                 fallback="snap", device="cuda")
     values = op.apply(fields)
+
+File to file (needs ``h5py``, which this root does not import)::
+
+    from multimesh_tpu_torch import api
+    api.gll_2_gll("source.h5", "target.h5", stored_array="cache_dir")
 """
 from .config import DEFAULT_LOCATE, LocateConfig, Precision  # noqa: F401
 from .ops.transfer import TransferOperator  # noqa: F401

@@ -9,6 +9,11 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+# Default trilinear-prefilter width: the prefilter ranks candidates with a
+# cheap order-1 Newton and keeps the best PREFILTER_M for the full-order
+# solve (shared by every engine path; retune it here, not at call sites).
+PREFILTER_M = 4
+
 
 class Precision(enum.Enum):
     """Numerical policy for the device pipeline.

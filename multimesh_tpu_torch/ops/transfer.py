@@ -31,6 +31,7 @@ from ..config import DEFAULT_LOCATE, LocateConfig
 from ..core import gll
 from ..search import polish as _polish
 from ..search.locate import locate as _locate
+from ..utils_profile import stage_timer
 
 PathLike = Union[str, pathlib.Path]
 
@@ -103,10 +104,12 @@ class TransferOperator:
         ``source_points`` [E, (p+1)^d, d] on ``device`` (see
         ``search.locate.locate``; ``plain`` runs the kernels' plain
         twins)."""
-        res = _locate(target_points, source_points, order, cfg,
-                      fallback=fallback, use_aabb=use_aabb,
-                      prefilter_m=prefilter_m, want_weights=False,
-                      device=device, plain=plain)
+        with stage_timer("operator.build") as t:
+            res = _locate(target_points, source_points, order, cfg,
+                          fallback=fallback, use_aabb=use_aabb,
+                          prefilter_m=prefilter_m, want_weights=False,
+                          device=device, plain=plain)
+            t.sync(res.elements)
         return cls(
             elements=res.elements, order=order, refs=res.refs,
             found=res.found,
@@ -141,8 +144,8 @@ class TransferOperator:
     def num_missing(self) -> int:
         return int((self.elements < 0).sum())
 
-    def apply(self, fields, expand: bool = True,
-              chunk: int = 1_048_576) -> torch.Tensor:
+    def apply(self, fields, expand: bool = True, chunk: int = 1_048_576,
+              out_chunks: bool = False):
         """Apply to one field [E, n] -> [N] or a stack [F, E, n] -> [N, F].
 
         The gather runs in the dtype of the refs (or of explicit weights)
@@ -152,7 +155,13 @@ class TransferOperator:
         (K5 on the card), as the JAX package's ``_apply_df32``.  With
         ``recon`` and ``expand`` the result is expanded back to the
         original (duplicated) point order.  The result is on the
-        operator's device."""
+        operator's device.
+
+        ``out_chunks=True`` returns ``(chunks, chunk)`` -- the list of
+        per-chunk tensors (row ranges ``[i*chunk, (i+1)*chunk)``,
+        un-expanded, [n, F]) instead of one concatenated tensor, so the
+        file path can copy chunk by chunk to the host while earlier rows
+        are already being expanded and written (``expand`` is ignored)."""
         fields = torch.as_tensor(fields, device=self.device)
         single = fields.dim() == 2
         if single:
@@ -188,6 +197,8 @@ class TransferOperator:
                             fields, self.order)
                 for s in range(0, N, chunk)
             ]
+        if out_chunks:
+            return outs, chunk
         if not outs:
             out = torch.zeros((0, fields.shape[0]), dtype=fields.dtype,
                               device=self.device)

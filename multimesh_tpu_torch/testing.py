@@ -206,6 +206,53 @@ def element_nodal_field(mesh: StructuredMesh, kind: str = "smooth"):
     return smooth_field(mesh.points, kind=kind)
 
 
+def salvus_fixture_fields(
+    mesh: StructuredMesh,
+    parameters=("VP", "VS", "RHO"),
+    fluid: np.ndarray | None = None,
+    field_kind: str = "smooth",
+):
+    """(nodal, elemental) fields of ``write_salvus_fixture``'s file, as
+    name -> array dicts: each parameter a scaled copy of the same
+    analytic field (so transfers of several parameters are
+    distinguishable), then ``z_node_1D``; elemental ``fluid`` and
+    ``layer``."""
+    base = element_nodal_field(mesh, field_kind)
+    nodal = {
+        p: base * (1.0 + 0.1 * i) for i, p in enumerate(parameters)
+    }
+    r = np.linalg.norm(mesh.points, axis=-1)
+    nodal["z_node_1D"] = r / 6.371e6  # spherical 1D radius fraction
+    if fluid is None:
+        fluid = np.zeros(mesh.nelem)
+    elemental = {
+        "fluid": np.asarray(fluid, np.float64),
+        "layer": mesh.layer_id.astype(np.float64),
+    }
+    return nodal, elemental
+
+
+def write_salvus_fixture(
+    filename,
+    mesh: StructuredMesh,
+    parameters=("VP", "VS", "RHO"),
+    fluid: np.ndarray | None = None,
+    global_strings: dict | None = None,
+    field_kind: str = "smooth",
+):
+    """Write a StructuredMesh as a Salvus-format HDF5 file with the
+    analytic fields of ``salvus_fixture_fields``; returns the nodal ones.
+    Needs ``h5py``."""
+    from .io import salvus as sio
+
+    nodal, elemental = salvus_fixture_fields(mesh, parameters, fluid,
+                                             field_kind)
+    sio.write_salvus_mesh(
+        filename, mesh.points, nodal, elemental, global_strings or {}
+    )
+    return nodal
+
+
 def shell_targets(n_points: int, seed: int = 0) -> np.ndarray:
     """``n_points`` random targets [n, 3] inside the default shell_mesh
     chunk (the JAX package's bench.py draw, from ``seed``)."""

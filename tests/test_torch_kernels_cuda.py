@@ -546,3 +546,98 @@ def test_df32_transfer_on_card_matches_plain_twins(dev):
     same = op.elements == p_op.elements
     assert same.double().mean() >= 0.999
     assert float(((v - pv).abs() / pv.abs())[same].max()) <= 1e-10
+
+
+def _file_pair():
+    """A small order-4 shell pair of the file path: the target strictly
+    inside the source, its first three elements fluid."""
+    src = testing.shell_mesh(n_lat=5, n_lon=5, n_rad=3, order=4)
+    tgt = testing.shell_mesh(n_lat=3, n_lon=3, n_rad=2, order=4,
+                             r_inner=3.6e6, r_outer=6.3e6,
+                             lat_extent=(0.55, 1.15),
+                             lon_extent=(0.35, 1.35))
+    fluid = np.zeros(tgt.nelem)
+    fluid[:3] = 1.0
+    return src, tgt, fluid
+
+
+_FILE_TOL = {"f32": 1e-5, "df32": 1e-10}
+
+
+@pytest.mark.parametrize("polish_mode", ["f32", "df32"])
+def test_file_path_on_card_matches_cpu(dev, polish_mode, tmp_path,
+                                       monkeypatch):
+    """``api.gll_2_gll`` file to file with ``device="cuda"`` against
+    ``device="cpu"`` on the same pair: 1e-5 relative on the f32 path,
+    1e-10 with ``MMT_DF32_POLISH=1``; fluid elements bit-equal."""
+    pytest.importorskip("h5py", reason="the file entry points need h5py")
+    import shutil
+
+    import h5py
+
+    from multimesh_tpu_torch import api
+
+    if polish_mode == "df32":
+        monkeypatch.setenv("MMT_DF32_POLISH", "1")
+    src, tgt, fluid = _file_pair()
+    testing.write_salvus_fixture(tmp_path / "src.h5", src)
+    testing.write_salvus_fixture(tmp_path / "tgt0.h5", tgt, fluid=fluid,
+                                 field_kind="linear")
+    out = {}
+    for device in ("cpu", "cuda"):
+        f_tgt = shutil.copyfile(tmp_path / "tgt0.h5",
+                                tmp_path / f"tgt_{device}.h5")
+        values = api.gll_2_gll(tmp_path / "src.h5", f_tgt, device=device)
+        with h5py.File(f_tgt, "r") as f:
+            out[device] = f["MODEL/data"][()]
+        assert np.array_equal(values, out[device])
+    rel = np.max(np.abs(out["cuda"] - out["cpu"]) / np.abs(out["cpu"]))
+    assert rel <= _FILE_TOL[polish_mode], rel
+    assert np.array_equal(out["cuda"][:3], out["cpu"][:3])
+
+
+@pytest.mark.parametrize("polish_mode", ["f32", "df32"])
+def test_transfer_arrays_on_card_matches_cpu(dev, polish_mode, monkeypatch):
+    """The file path between "arrays read" and "blocks written"
+    (``engine.transfer_arrays``, a numpy sink; no ``h5py``) on the card
+    against the CPU, with the tolerances of the file test; the kernels'
+    launch counts move, and the pinned-buffer pull of several chunks
+    gives what one chunk gives."""
+    from multimesh_tpu_torch import engine
+
+    if polish_mode == "df32":
+        monkeypatch.setenv("MMT_DF32_POLISH", "1")
+    src, tgt, fluid = _file_pair()
+    s_nodal, _ = testing.salvus_fixture_fields(src)
+    t_nodal, _ = testing.salvus_fixture_fields(tgt, fluid=fluid,
+                                               field_kind="linear")
+    src_data = np.stack(list(s_nodal.values()), axis=1)
+    old = np.stack(list(t_nodal.values()), axis=1)
+    solid = ~fluid.astype(bool)
+
+    def run(device):
+        sink = np.full(old.shape, np.nan)
+        values = engine.transfer_arrays(
+            src.points, src_data, list(s_nodal), tgt.points, old, solid,
+            lambda names: sink, device=device)
+        assert np.array_equal(values, sink)
+        return sink
+
+    before = (newton.newton_rows.launches, nearest.nearest.launches,
+              polish.polish_pairs.launches, polish.apply_pairs.launches)
+    got, want = run("cuda"), run("cpu")
+    after = (newton.newton_rows.launches, nearest.nearest.launches,
+             polish.polish_pairs.launches, polish.apply_pairs.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    assert (after[2] > before[2] and after[3] > before[3]) == (
+        polish_mode == "df32")
+    rel = np.max(np.abs(got - want) / np.abs(want))
+    assert rel <= _FILE_TOL[polish_mode], rel
+    assert np.array_equal(got[:3], old[:3])
+
+    # several chunks through the side-stream pull against one chunk
+    vals = torch.as_tensor(
+        np.random.default_rng(0).uniform(1.0, 2.0, (1000, 4)), device=dev)
+    host, wait = engine._start_pull(list(vals.split(300)), 300)
+    wait(3)
+    assert np.array_equal(host, vals.cpu().numpy())
