@@ -43,9 +43,21 @@ each on stdout:
    the same arrays go through ``engine.transfer_arrays`` with a numpy
    sink, and the line says ``"h5py": false``.
 
+10. the grid route (``phase_big``): the same build + apply at the
+   ``gll_big`` shape -- an order-4 shell source of 80 x 78 x 80 = 499,200
+   elements (62.4M GLL nodes), the same 10,000,000 targets, 3 parameters,
+   snap fallback -- where every search probes the balanced-bin index of
+   ``search/grid.py``: the prep and the index (built, then hit on the
+   frozen lattice), ``nearest_member`` and ``grid_knn`` against the exact
+   kNN, K1 against its twin on round 1's sparse rows (nearly every row
+   its own element) with and without its grouping, one warm-up and three
+   timed runs of the slice, its first chunk against the plain path, and
+   the slice once more with the df32 polish (K1, K4, K5).
+
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
-slice's run and, as ``launches_file``, in the file path's df32 call,
+slice's run, as ``launches_file`` in the file path's df32 call and as
+``launches_big`` in the grid route's df32 run,
 K5 also with ``max_rel_diff_file`` against its twin on that call's
 inputs; the times of K1, K4 and K5 include their grouping pre-pass,
 also timed alone as ``group_ms``, and K4's and K5's kernel alone as
@@ -56,8 +68,8 @@ line, as it does without a CUDA device.
     python3 chip_smoke.py --profile
 
 runs phase 1 and then, instead of the checks, times the slice, df32
-slice, f64_polish slice, flagship, scan and file runs warm and profiles
-each once with ``torch.profiler`` (see ``profile``).
+slice, f64_polish slice, flagship, scan, file and ``gll_big`` slice runs
+warm and profiles each once with ``torch.profiler`` (see ``profile``).
 """
 import argparse
 import dataclasses
@@ -73,13 +85,13 @@ import time
 import numpy as np
 import torch
 
-from multimesh_tpu_torch import (TransferOperator, _build, engine, testing,
-                                 utils_profile)
+from multimesh_tpu_torch import (TransferOperator, _build, engine, hashing,
+                                 testing, utils_profile)
 from multimesh_tpu_torch.config import LocateConfig, Precision
 from multimesh_tpu_torch.ops import dedup
 from multimesh_tpu_torch.search import locate as _locate
 from multimesh_tpu_torch.core import shape
-from multimesh_tpu_torch.search import knn, nearest, newton, polish
+from multimesh_tpu_torch.search import grid, knn, nearest, newton, polish
 
 ROWS = 262_144  # one locate chunk
 N_TARGETS = 10_000_000
@@ -98,13 +110,17 @@ APPLY_CHUNK = 1_048_576  # rows of one apply chunk (TransferOperator.apply)
 # not, the same arrays take engine.transfer_arrays with a numpy sink
 HAVE_H5PY = importlib.util.find_spec("h5py") is not None
 FILE_PARAMS = ("VP", "VS", "RHO")
+# the gll_big source: 80 x 78 x 80 = 499,200 elements of order 4
+BIG_SHELL = dict(n_lat=80, n_lon=78, n_rad=80, order=4)
+N_BIG_KNN = 8_192  # rows of the grid_knn check (and of a rescue launch)
 # published peaks of one H100 SXM (NVIDIA's data sheet; at 700 W): f32 and
 # f64 outside the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 # the kernels of csrc/ (K1 with its grouping pre-pass, K2, K4, K5),
 # listed by --profile whatever their rank
 PORT_KERNELS = ("newton_rows_kernel", "group_count_kernel",
-                "group_scan_kernel", "group_scatter_kernel",
+                "group_scan_tiles_kernel", "group_scan_kernel",
+                "group_scatter_kernel",
                 "nearest_centroid_kernel", "polish_pairs_kernel",
                 "apply_pairs_kernel")
 
@@ -181,12 +197,17 @@ def sumfact_fmas(order, dim, jac):
 
 def newton_bound(args, refs, res):
     """K1's bound: per row, ``iters`` evaluations of x and J and one of x
-    for the residual, d components each, 2 FLOP an FMA, in f32."""
+    for the residual, d components each, 2 FLOP an FMA, in f32; the bytes
+    of the rows and of the lattice, centre and scale of each element that
+    occurs among them, once."""
     points, ids, ctr, inv_scale, nodes, order, dim, iters, _ = args
     per_row = dim * (iters * sumfact_fmas(order, dim, True)
                      + sumfact_fmas(order, dim, False))
+    E = ctr.shape[0]
+    occur = int(torch.unique(ids[(ids >= 0) & (ids < E)]).numel())
+    per_elem = nbytes(ctr, inv_scale, nodes) // E
     return bound(2 * per_row * points.shape[0], PEAK_F32,
-                 nbytes(points, ids, ctr, inv_scale, nodes, refs, res))
+                 nbytes(points, ids, refs, res) + occur * per_elem)
 
 
 def phase_device():
@@ -1015,10 +1036,244 @@ def phase_file(case, smi):
     return launches_d, max(k5_rel)
 
 
-def profile(dev, src, pts_d, fields, targets, case):
+def big_source():
+    """The ``gll_big`` source mesh with its lattice frozen (so it is
+    hashed once, see ``hashing.array_fingerprint``) and its 3 fields, as
+    (mesh, fields [3, E, 125] f64 on the host, seconds it took)."""
+    t0 = time.perf_counter()
+    src = testing.shell_mesh(**BIG_SHELL)
+    src.points.setflags(write=False)
+    base = testing.element_nodal_field(src, "smooth")
+    fields = np.stack([base * (1 + 0.1 * i) for i in range(3)])
+    return src, fields, time.perf_counter() - t0
+
+
+def _host_s(fn):
+    """(result, wall seconds) of ``fn()``, the device synchronised."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_big(dev, smi, big, pts_d, truth):
+    """The grid route at the ``gll_big`` shape (see the module docstring).
+    Returns the launch counts of its df32 run."""
+    src, fields_h, mesh_s = big
+    E, order, dim = src.nelem, src.order, src.dim
+    check(E > grid.APPROX_GRID_MIN_SOURCES and E > grid.EXACT_KNN_MAX_SOURCES,
+          f"{E} elements do not take the grid route")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fields = torch.as_tensor(fields_h, device=dev)
+    del fields_h
+
+    # the lattice's fingerprint (hashed once: frozen), the prep on the
+    # card, the index; each a second time as a cache hit
+    fp, hash_s = _host_s(lambda: hashing.array_fingerprint(src.points))
+    fp2, hash_hit_s = _host_s(lambda: hashing.array_fingerprint(src.points))
+    check(fp == fp2, "the frozen lattice's fingerprint changed")
+    prep, prep_s = _host_s(lambda: _locate._mesh_prep(src.points, order, dev))
+    prep2, prep_hit_s = _host_s(
+        lambda: _locate._mesh_prep(src.points, order, dev))
+    check(prep2 is prep, "the second prep of the frozen lattice missed")
+    index, index_s = _host_s(lambda: grid.get_grid_index(
+        prep.centroids_host, _locate.ROUND1_MEMBERS, dev))
+    index2, index_hit_s = _host_s(lambda: grid.get_grid_index(
+        prep.centroids_host, _locate.ROUND1_MEMBERS, dev))
+    check(index2 is index, "the second get_grid_index missed")
+    n_bins, m = index.n_bins, index.members_per_bin
+    p1 = _locate.ROUND1_PROBES
+
+    # round 1's search on the first chunk against the exact kNN
+    q = pts_d[:ROWS]
+    cand = grid.nearest_member(index, q, n_probe=p1)
+    (d_exact, i_exact), exact_s = _host_s(
+        lambda: knn.knn(prep.centroids, q, 1))
+    d_cand = ((q - prep.centroids[cand.long()]) ** 2).sum(-1)
+    nearest_share = float((cand == i_exact[:, 0]).double().mean())
+    never_nearer = bool((d_cand >= d_exact[:, 0] * (1 - 1e-12)).all())
+    d64, i64 = grid._grid_query(index, q, 1, p1, index.bin_coords64)
+    same64 = float((cand == i64[:, 0]).double().mean())
+    d_64 = ((q - prep.centroids[i64[:, 0].long()]) ** 2).sum(-1)
+    d64_err = float(((d_cand - d_64).abs() / d_cand.clamp_min(1.0)).max())
+    # stage 1 alone (score + top-p over the bins), in the search's blocks
+    step = grid._row_step(n_bins, p1, dim, m)
+
+    def stage1():
+        for s0 in range(0, ROWS, step):
+            grid._probe_bins(index, q[s0:s0 + step] - index.center, p1)
+
+    stage1_ms = cuda_ms(stage1, 5)
+    search_ms = cuda_ms(
+        lambda: grid.nearest_member(index, q, n_probe=p1), 5)
+    # one PyTorch call for stage 1's ranking: cdist, then the same top-p
+    q32 = (q - index.center).float()
+    cdist_topk_ms = cuda_ms(lambda: [
+        torch.topk(torch.cdist(q32[s0:s0 + step], index.bin_reps32), p1,
+                   dim=1, largest=False) for s0 in range(0, ROWS, step)], 3)
+
+    # grid_knn, k = 20 of 8 probed bins, by distance against the exact kNN
+    qk = q[:N_BIG_KNN]
+    gd2, gidx = grid.grid_knn(index, qk, 20, n_probe=8)
+    ed2, _ = knn.knn(prep.centroids, qk, 20)
+    gd_true = ((qk[:, None, :] - prep.centroids[gidx.long()]) ** 2).sum(-1)
+    # by distance, not by index: two members at one distance may swap.  A
+    # row is complete when all 20 distances are the exact ones; 8 bins do
+    # not always hold a query's 20 nearest (its ladder has a round 4)
+    knn_off = (gd_true.sqrt() - ed2.sqrt()).abs() / ed2.sqrt()
+    knn_rel = float(knn_off.max())
+    knn_rows = float((knn_off <= 1e-5).all(dim=1).double().mean())
+    knn_first = float((knn_off[:, 0] <= 1e-5).double().mean())
+    knn_self = float(((gd2 - gd_true).abs() / gd_true).max())
+    grid_knn_ms = cuda_ms(lambda: grid.grid_knn(index, qk, 20, n_probe=8), 5)
+    emit({"phase": "big index", "nvidia_smi": smi, "elements": E,
+          "mesh_host_s": mesh_s, "hash_s": hash_s, "hash_hit_s": hash_hit_s,
+          "prep_s": prep_s, "prep_hit_s": prep_hit_s, "n_bins": n_bins,
+          "members_per_bin": m, "build_s": index_s, "hit_s": index_hit_s,
+          "cache_hit": index2 is index, "rows": ROWS, "n_probe": p1,
+          "nearest_is_exact": nearest_share, "never_nearer": never_nearer,
+          "same_as_f64_ranking": same64, "max_rel_d2_vs_f64_ranking": d64_err,
+          "exact_knn_s": exact_s, "row_block": step, "stage1_ms": stage1_ms,
+          "search_ms": search_ms, "stage2_ms": search_ms - stage1_ms,
+          "stage1_cdist_topk_ms": cdist_topk_ms,
+          "grid_knn_rows": N_BIG_KNN, "grid_knn_max_rel_dist": knn_rel,
+          "grid_knn_complete_rows": knn_rows,
+          "grid_knn_first_is_nearest": knn_first,
+          "grid_knn_d2_self_rel": knn_self, "grid_knn_ms": grid_knn_ms})
+    check(nearest_share >= 0.97, f"nearest_member is the exact nearest on "
+          f"{nearest_share:.4f} < 0.97 of the rows")
+    check(never_nearer, "a nearest_member candidate is nearer than the "
+          "exact nearest")
+    check(same64 >= 0.999 and d64_err <= 1e-5, f"nearest_member differs "
+          f"from the f64 ranking of its bins ({same64:.6f}, {d64_err:.3g})")
+    check(knn_first >= 0.999, f"grid_knn's first column is the nearest "
+          f"(rtol 1e-5) on {knn_first:.4f} < 0.999 of the rows")
+    check(knn_rows >= 0.995, f"grid_knn's 20 distances are the exact ones "
+          f"(rtol 1e-5) on {knn_rows:.4f} < 0.995 of the rows")
+    check(knn_self <= 1e-9, f"grid_knn's own d2 is off by {knn_self:.3g}")
+    del d_exact, i_exact, d64, i64, gd2, gidx, ed2, gd_true, knn_off
+
+    # K1 on round 1's rows: nearly every row of a block its own element
+    args = (q.contiguous(), cand.contiguous(), prep.ctr, prep.inv_scale,
+            prep.nodes, order, dim, ITERS, LocateConfig().newton_clamp)
+    k_ref, k_res = newton.newton_rows(*args)
+    p_ref, p_res = newton.newton_refs_rows_ref(*args)
+    torch.cuda.synchronize()
+    kc, pc = k_res < CONV_TOL, p_res < CONV_TOL
+    ka = kc & (k_ref.abs().amax(-1) < ACCEPT_TOL)
+    pa = pc & (p_ref.abs().amax(-1) < ACCEPT_TOL)
+    acc_agree = float((ka == pa).double().mean())
+    k1_err = float((k_ref - p_ref)[ka & pa].abs().max())
+    conv_err = float((k_ref - p_ref)[kc & pc].abs().max())
+    ident = torch.arange(ROWS, dtype=torch.int32, device=dev)
+    times = _grouped_times(newton.newton_rows, newton._newton_kernel, args,
+                           args[1], E)
+    ungrouped_ms = cuda_ms(lambda: newton._newton_kernel(ident, *args), 20)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        newton._newton_kernel(ident, *args), (k_ref, k_res)))
+    plain_ms = cuda_ms(lambda: newton.newton_refs_rows_ref(*args), 3)
+    bound_ms, bound_by = newton_bound(args, k_ref, k_res)
+    # a rescue launch's rows: the grouping's scan walks E + 1 bins whatever M
+    small = tuple(a[:N_BIG_KNN].contiguous() for a in args[:2]) + args[2:]
+    small_t = _grouped_times(newton.newton_rows, newton._newton_kernel,
+                             small, small[1], E)
+    distinct = int(torch.unique(args[1]).numel())
+    k1 = {"phase": "big K1", "order_dim": f"{order}/{dim}", "rows": ROWS,
+          "elements": E, "distinct_elements": distinct,
+          "accepted": float(ka.double().mean()), "accept_agree": acc_agree,
+          "max_abs_err_accepted": k1_err, "max_abs_err_converged": conv_err,
+          "grouped_bit_equal_row_order": bit_equal, **times,
+          "ungrouped_ms": ungrouped_ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_share": bound_ms / times["ms"],
+          "rows_rescue": N_BIG_KNN,
+          **{f"{k}_rescue": v for k, v in small_t.items()}}
+    emit(k1)
+    check(acc_agree >= 0.9999, f"big K1 acceptance agreement {acc_agree:.6f}")
+    check(k1_err <= 1e-5, f"big K1 accepted refs differ by {k1_err:.3g}")
+    check(bit_equal, "big K1 grouped differs from row order")
+    del k_ref, k_res, p_ref, p_res, args, small
+
+    # one chunk of the ladder alone, warm (stage list of PERF.md)
+    def one_chunk():
+        return _locate.locate(q, src.points, order, SLICE_CFG,
+                              fallback="snap", device=dev,
+                              want_weights=False)
+
+    one_chunk()
+    chunk_s = min(_host_s(one_chunk)[1] for _ in range(3))
+
+    # the slice: one warm-up, three timed runs
+    def run(targets, cfg=SLICE_CFG, plain=False):
+        return run_transfer(src, targets, fields, cfg, dev, plain,
+                            fallback="snap")
+
+    run(pts_d)
+    walls, builds, applies = [], [], []
+    for _ in range(3):
+        reset_launches()
+        t0 = time.perf_counter()
+        op, vals, build_s, apply_s = run(pts_d)
+        walls.append(time.perf_counter() - t0)
+        builds.append(build_s)
+        applies.append(apply_s)
+        launches = read_launches()
+    check(launches["newton_rows"] > 0, f"K1 was not launched: {launches}")
+    check(launches["nearest_centroid"] == 0, "K2 ran on the grid route")
+    check(tuple(vals.shape) == (N_TARGETS, 3), f"shape {tuple(vals.shape)}")
+    check(bool(torch.isfinite(vals).all()), "non-finite values")
+    check(bool(op.found.all()), "snap left a target unassigned")
+    rel = max_rel(vals[:, 0], truth)
+    p_op, p_vals, _, _ = run(q, plain=True)
+    same = op.elements[:ROWS] == p_op.elements
+    agree = float(same.double().mean())
+    v, pv = vals[:ROWS][same], p_vals[same]
+    vdiff = float(((v - pv).abs() / pv.abs()).max())
+    n_retry = op.n_retry
+    del op, vals, p_op, p_vals, v, pv
+
+    # the same once with the df32 polish (the prep with the f64 lattice
+    # first, so the run itself is warm)
+    _, prep64_s = _host_s(
+        lambda: _locate._mesh_prep(src.points, order, dev, want64=True))
+    reset_launches()
+    t0 = time.perf_counter()
+    d_op, d_vals, d_build, d_apply = run(pts_d, cfg=DF32_CFG)
+    d_wall = time.perf_counter() - t0
+    d_launches = read_launches()
+    d_rel = max_rel(d_vals[:, 0], truth)
+    check(d_op.refs_lo is not None and d_vals.dtype == torch.float64,
+          "the df32 polish did not run")
+    walls_sorted = sorted(walls)
+    emit({"phase": "big slice", "nvidia_smi": smi, "targets": N_TARGETS,
+          "elements": E, "params": 3, "walls_s": walls,
+          "wall_median_s": walls_sorted[1],
+          "wall_spread_s": walls_sorted[-1] - walls_sorted[0],
+          "build_s": builds, "apply_s": applies,
+          "mpts_per_s_median": N_TARGETS / walls_sorted[1] / 1e6,
+          "one_chunk_locate_s": chunk_s, "n_retry": n_retry,
+          "launches": launches, "max_rel_err": rel,
+          "plain_elements_agree": agree, "plain_max_rel_diff": vdiff,
+          "df32": {"prep64_s": prep64_s, "wall_s": d_wall,
+                   "build_s": d_build, "apply_s": d_apply,
+                   "launches": d_launches, "max_rel_err": d_rel,
+                   "n_retry": d_op.n_retry},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check(rel < 1e-6, f"big slice max rel err {rel:.3g} >= 1e-6")
+    check(agree >= 0.999, f"big plain path elements agree {agree:.6f}")
+    check(vdiff <= 1e-5, f"big plain path values differ by {vdiff:.3g}")
+    check(d_rel < 1e-8, f"big df32 max rel err {d_rel:.3g} >= 1e-8")
+    check(all(d_launches[k] > 0 for k in ("newton_rows", "polish_pairs",
+                                          "apply_pairs")),
+          f"a kernel of the big df32 path was not launched: {d_launches}")
+    return d_launches
+
+
+def profile(dev, src, pts_d, fields, targets, case, big):
     """``--profile``: per run of the time breakdown in PERF.md (the
-    slices, the flagship options, the scan and the file path's
-    ``case.run``), one warm-up, three timed warm walls and one run under
+    slices, the flagship options, the scan, the file path's ``case.run``
+    and the slice on the ``gll_big`` source ``big``), one warm-up, three timed warm walls and one run under
     ``torch.profiler``;
     one JSON line each with the walls, the device time of all kernels of
     the profiled run, the busy share (that device time over the mean warm
@@ -1041,6 +1296,10 @@ def profile(dev, src, pts_d, fields, targets, case):
         "scan, 1M targets": lambda: run_scan(src, tgt_d, dev),
         "file": case.run,
     }
+    big_src, big_fields, _ = big
+    big_fields = torch.as_tensor(big_fields, device=dev)
+    runs["gll_big slice"] = lambda: run_transfer(
+        big_src, pts_d, big_fields, SLICE_CFG, dev, fallback="snap")
     for name, fn in runs.items():
         walls = []
         for _ in range(4):  # the first warms up
@@ -1091,7 +1350,7 @@ def main():
     if args.profile:
         with tempfile.TemporaryDirectory() as tmpdir:
             profile(dev, src, pts_d, fields, lifted_targets(pts)[0],
-                    FileCase(src, file_target(), tmpdir, dev))
+                    FileCase(src, file_target(), tmpdir, dev), big_source())
         return 0
     centroids = torch.as_tensor(src.points.mean(axis=1), device=dev)
     truth = torch.as_tensor(testing.smooth_field(pts), device=dev)
@@ -1103,17 +1362,26 @@ def main():
     phase_slice(dev, src, pts_d, fields, truth)
     launches = phase_df32_slice(dev, src, pts_d, fields, truth)
     order1 = phase_flagship(dev, src, pts, fields)
-    del pts, pts_d, truth, fields
+    del pts, pts_d, fields
     with tempfile.TemporaryDirectory() as tmpdir:
         launches_file, k5["max_rel_diff_file"] = phase_file(
             FileCase(src, file_target(), tmpdir, dev), smi)
+    # the small case's tensors and caches go before the 499,200-element one
+    del src, centroids
+    clear_caches()
+    big = big_source()
+    launches_big = phase_big(
+        dev, smi, big,
+        torch.as_tensor(testing.shell_targets(N_TARGETS, seed=0), device=dev),
+        truth)
 
-    # launches of the df32 slice's run and of the file path's df32 call;
-    # K1's order-1 ones of the scan's
+    # launches of the df32 slice's run, of the file path's df32 call and of
+    # the grid route's df32 run; K1's order-1 ones of the scan's
     for entry, name in ((k1, "newton_rows"), (k2, "nearest_centroid"),
                         (k4, "polish_pairs"), (k5, "apply_pairs")):
         entry["launches"] = launches[name]
         entry["launches_file"] = launches_file[name]
+        entry["launches_big"] = launches_big[name]
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
     k1["launches_order1"] = order1
     print(smi, flush=True)

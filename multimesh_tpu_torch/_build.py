@@ -39,8 +39,8 @@ _SIGNATURES = {
     # clamp, refs, res, stream
     "mmt_newton_rows": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
                         _I32, _F32, _P, _P, _P),
-    # ids, M, E, counts, perm, stream
-    "mmt_group_rows": (_P, _I64, _I64, _P, _P, _P),
+    # ids, M, E, counts, tile_sums, n_tiles, perm, stream
+    "mmt_group_rows": (_P, _I64, _I64, _P, _P, _I64, _P, _P),
     # queries, centroids, center, C, E, dim, out, stream
     "mmt_nearest_centroid": (_P, _P, _P, _I64, _I64, _I32, _P, _P),
     # points, ids, perm, ref0, ctr, inv_scale, nodes64, M, E, order, dim,
@@ -125,6 +125,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        lib.mmt_group_scan_tile.argtypes = []
+        lib.mmt_group_scan_tile.restype = ctypes.c_int
         lib.mmt_error_string.argtypes = [ctypes.c_int]
         lib.mmt_error_string.restype = ctypes.c_char_p
         _library = lib

@@ -27,6 +27,11 @@
 // id): a histogram, an exclusive scan, a scatter, with one atomic per
 // run of equal ids in a warp (so rows already grouped do not queue on one
 // address); the order of rows inside a bin is whatever the atomics give.
+// The scan runs over tiles of kScanTile bins, one block each, then over
+// the tiles' totals: its cost must not grow with a thread's share of E + 1,
+// since every launch pays it, the 8,192-row rescue launches of a
+// 500,000-element source included (one block walking all bins took 0.74 ms
+// there on an H100, four times such a launch's Newton kernel).
 //
 // What bounds it on Hopper: FMA issue.  Grouped, the 128 rows of a block
 // share a few elements (~3 in the ladder's first round: 64 rows per
@@ -405,7 +410,50 @@ group_count_kernel(const int* __restrict__ ids, int M, int E,
     atomicAdd(counts + b, __popc(peers));
 }
 
-// counts[0..n) -> their exclusive prefix sums, in place, by one block
+constexpr int kScanThreads = 256;
+constexpr int kScanPer = 8;  // consecutive bins of a thread: one 32 B sector
+constexpr int kScanTile = kScanThreads * kScanPer;
+
+// counts[tile] -> their exclusive prefix sums within the tile, in place, one
+// block a tile; tile_sums[tile] = the tile's total
+__global__ void __launch_bounds__(kScanThreads)
+group_scan_tiles_kernel(int* __restrict__ counts, int n,
+                        int* __restrict__ tile_sums) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int64_t base = (int64_t)blockIdx.x * kScanTile + t * kScanPer;
+  int v[kScanPer];
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) {
+    v[k] = base + k < n ? counts[base + k] : 0;
+    sum += v[k];
+  }
+  int x = sum;  // inclusive scan of the threads' sums, warp then block
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0;
+#pragma unroll
+  for (int w = 0; w < kScanThreads / 32; ++w)
+    before += w < warp ? warp_sums[w] : 0;
+  int run = before + x - sum;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) {
+    if (base + k < n) counts[base + k] = run;
+    run += v[k];
+  }
+  if (t == kScanThreads - 1) tile_sums[blockIdx.x] = run;
+}
+
+// counts[0..n) -> their exclusive prefix sums, in place, by one block (the
+// tiles' totals: 244 of them at 499,201 bins)
 __global__ void __launch_bounds__(1024)
 group_scan_kernel(int* __restrict__ counts, int n) {
   __shared__ int warp_sums[32];
@@ -443,10 +491,12 @@ group_scan_kernel(int* __restrict__ counts, int n) {
   }
 }
 
-// perm[cursor[bin]++] = row
+// perm[tile_start[bin's tile] + cursor[bin]++] = row
 __global__ void __launch_bounds__(256)
 group_scatter_kernel(const int* __restrict__ ids, int M, int E,
-                     int* __restrict__ cursor, int* __restrict__ perm) {
+                     int* __restrict__ cursor,
+                     const int* __restrict__ tile_start,
+                     int* __restrict__ perm) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool in = row < M;
@@ -456,7 +506,8 @@ group_scatter_kernel(const int* __restrict__ ids, int M, int E,
   const unsigned peers = __match_any_sync(active, b);
   const int leader = __ffs(peers) - 1;
   int base = 0;
-  if (lane == leader) base = atomicAdd(cursor + b, __popc(peers));
+  if (lane == leader)
+    base = atomicAdd(cursor + b, __popc(peers)) + tile_start[b / kScanTile];
   base = __shfl_sync(peers, base, leader);
   perm[base + __popc(peers & ((1u << lane) - 1u))] = row;
 }
@@ -503,21 +554,31 @@ extern "C" int mmt_newton_rows(const void* points, const void* ids,
   }
 }
 
+// Bins of one tile of the grouping's scan: the caller sizes tile_sums by it.
+extern "C" int mmt_group_scan_tile() { return kScanTile; }
+
+// counts: E + 1 ints of scratch, tile_sums: n_tiles >= ceil((E + 1) /
+// mmt_group_scan_tile()) more.
 extern "C" int mmt_group_rows(const void* ids, int64_t M, int64_t E,
-                              void* counts, void* perm, void* stream) {
+                              void* counts, void* tile_sums, int64_t n_tiles,
+                              void* perm, void* stream) {
   if (M <= 0) return (int)cudaSuccess;
-  if (M > 0x7fffffff || E < 0 || E >= 0x7fffffff)
+  const int64_t tiles = (E + 1 + kScanTile - 1) / kScanTile;
+  if (M > 0x7fffffff || E < 0 || E >= 0x7fffffff || n_tiles < tiles)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
   int* c = static_cast<int*>(counts);
+  int* ts = static_cast<int*>(tile_sums);
   const int m = (int)M, e = (int)E;
   const unsigned blocks = (unsigned)((M + 255) / 256);
   cudaError_t err = cudaMemsetAsync(c, 0, (E + 1) * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   group_count_kernel<<<blocks, 256, 0, s>>>(id, m, e, c);
-  group_scan_kernel<<<1, 1024, 0, s>>>(c, e + 1);
-  group_scatter_kernel<<<blocks, 256, 0, s>>>(id, m, e, c,
+  group_scan_tiles_kernel<<<(unsigned)tiles, kScanThreads, 0, s>>>(c, e + 1,
+                                                                   ts);
+  group_scan_kernel<<<1, 1024, 0, s>>>(ts, (int)tiles);
+  group_scatter_kernel<<<blocks, 256, 0, s>>>(id, m, e, c, ts,
                                               static_cast<int*>(perm));
   return (int)cudaGetLastError();
 }

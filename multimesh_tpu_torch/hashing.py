@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``hashing.py`` (numpy only), so that fingerprints
 agree between the two packages: an operator saved by either one loads in
-the other.
+the other; and ``array_fingerprint``, the identity cache for read-only
+arrays that the JAX package keeps in ``search/grid.py``.
 
 Operator caches and the mesh-prep cache must be keyed by the *content*
 of the source/target geometry: the reference's name-only ``.npy`` caches
@@ -16,6 +17,7 @@ classes a plain checksum misses.
 from __future__ import annotations
 
 import hashlib
+import weakref
 
 import numpy as np
 
@@ -134,6 +136,49 @@ def content_fingerprint(*arrays) -> int:
         h.update(str(a.dtype).encode())
         h.update(content_hash(a))
     return int.from_bytes(h.digest(), "little")
+
+
+def _guard_digest(a: np.ndarray) -> bytes:
+    """Strided sample digest (~64K bytes read whatever the size), taken
+    again on every identity-cache hit as a tripwire for unfreeze, mutate,
+    refreeze, which the id and the read-only flag cannot see.  It is a
+    sample: a bulk rewrite always trips it, a sparse edit of an array far
+    larger than 64 KB can land between its points.  Freezing an array is
+    the caller's promise that the buffer will not change."""
+    b8 = a.reshape(-1).view(np.uint8)
+    step = max(1, b8.size // 65536)
+    return hashlib.blake2b(np.ascontiguousarray(b8[::step]).tobytes(),
+                           digest_size=16).digest()
+
+
+_FROZEN_CACHE: dict = {}  # id -> (weakref, guard digest, fingerprint)
+
+
+def array_fingerprint(a: np.ndarray) -> int:
+    """``content_fingerprint(a)``, paid once for a read-only array.
+
+    A writable array is hashed on every call: numpy buffers are mutable,
+    so its identity says nothing about its content.  Freezing one with
+    ``a.setflags(write=False)`` promises that the buffer will not change;
+    its fingerprint is then cached by identity, so a GB-scale lattice is
+    hashed once per mesh, not once per ``locate``.  The cache holds a weak
+    reference (the array is freed with its last user, and the reused id
+    of a dead array never matches), and every hit re-checks
+    ``_guard_digest``."""
+    a = np.asarray(a)
+    if a.flags.writeable or not a.flags.c_contiguous:
+        return content_fingerprint(a)
+    guard = _guard_digest(a)
+    ent = _FROZEN_CACHE.get(id(a))
+    if ent is not None and ent[0]() is a and ent[1] == guard:
+        return ent[2]
+    fp = content_fingerprint(a)
+    for key in [k for k, e in _FROZEN_CACHE.items() if e[0]() is None]:
+        del _FROZEN_CACHE[key]
+    if len(_FROZEN_CACHE) > 8:
+        _FROZEN_CACHE.clear()
+    _FROZEN_CACHE[id(a)] = (weakref.ref(a), guard, fp)
+    return fp
 
 
 def combine_fingerprints(*fps: int) -> int:

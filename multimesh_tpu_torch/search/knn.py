@@ -5,7 +5,11 @@ uses:
 
 * ``nearest_centroid``: the chunk loop around K2 (``search.nearest``) that
   gives round 1 its single candidate;
-* ``knn``: exact k nearest sources, for round 4 and the scan retry.  On
+* ``knn``: exact k nearest sources, for round 4 and, through
+  ``grid.knn_any``, the scan and the scan retry of sources up to 131,072
+  elements (beyond, and in every round of the ladder above 16,384,
+  ``search.grid`` probes its balanced-bin index instead: a [rows, E]
+  block here is 67 rows at E = 500,000).  On
   the card it is f64 distances plus ``torch.topk``; the JAX package's
   two-stage group top-k and split-f32 re-rank worked around TPU
   ``top_k`` and emulated f64, which the card does not need;

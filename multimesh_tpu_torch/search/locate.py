@@ -1,9 +1,10 @@
 """Point location: candidates -> Newton -> accept -> fallbacks -> polish.
 
-Counterpart of the JAX package's ``search/locate.py`` on sources of at
-most 16,384 elements, along the routes of its TPU engine.
+Counterpart of the JAX package's ``search/locate.py`` on sources of any
+size, along the routes of its TPU engine.
 
-``strategy="ladder"`` (and "auto"), the escalation ladder:
+``strategy="ladder"`` (and "auto"), the escalation ladder, for sources
+of at most ``grid.APPROX_GRID_MIN_SOURCES`` (16,384) elements:
 
 1. round 1: every point's nearest centroid (K2, ``search.nearest``) and
    one Newton solve on it (K1, ``search.newton``);
@@ -11,6 +12,14 @@ most 16,384 elements, along the routes of its TPU engine.
    their top-8 nearest centroids;
 3. round 4: an exact kNN with ``nelem_to_search`` candidates for the last
    C/128 failures;
+
+and for larger sources, where a [rows, E] sweep would grow with the mesh,
+the same rounds over the balanced-bin index of ``search.grid`` (the grid
+route): round 1 takes the nearest member of the 4 nearest 128-member
+bins, rounds 2-3 the top 12 of 2 probed bins for C/32 failures each,
+round 4 the full ``nelem_to_search`` list of 16 probed bins for C/32.
+Then, on both routes:
+
 4. the sentinel / snap / best / fixed_ref fallbacks;
 5. a scan retry (K1 once per candidate column) of the unaccepted rows
    that never reached round 4 -- under ``fixed_ref`` of every unaccepted
@@ -21,7 +30,8 @@ most 16,384 elements, along the routes of its TPU engine.
    (K4, ``search.polish``; the refs become an (f32, f32) pair that the
    transfer operator applies through K5).
 
-``strategy="scan"``: exact kNN candidates, ranked down to ``prefilter_m``
+``strategy="scan"``: kNN candidates (``grid.knn_any``: exact up to
+131,072 elements, 8 probed bins beyond), ranked down to ``prefilter_m``
 by the trilinear prefilter (K1 at order 1 on the element corners, the
 JAX package's order-1 use of K3) and scanned in distance order; the rows
 that the prefiltered list fails to accept are scanned again with the
@@ -34,13 +44,13 @@ best-so-far (reference multi_mesh/components/interpolator.py:1147-1255);
 Sources of at most 64 elements take exact top-k candidates with
 K = min(8, E) columns through the same rounds instead.
 
-Outside this slice (each raises ``NotImplementedError``): the grid route
-for E > 16,384 (ROADMAP A6) and ``Precision.F64``.
+Outside the port (raises ``NotImplementedError``): ``Precision.F64``.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Callable
 
 import numpy as np
 import torch
@@ -48,7 +58,8 @@ import torch
 from ..config import (DEFAULT_LOCATE, FALLBACK_REF_COORD, LocateConfig,
                       Precision)
 from ..core import gll, shape
-from ..hashing import content_fingerprint
+from ..hashing import array_fingerprint
+from . import grid as _grid
 from . import knn as _knn
 from . import newton as _newton
 from . import polish as _polish
@@ -56,9 +67,13 @@ from . import polish as _polish
 # residual threshold (unit-element frame) separating converged f32 Newton
 # solves (~1e-6 plateau) from diverged/exterior junk
 _F32_CONV_TOL = 1e-4
-# largest source served by the exact round-4 search
-# (APPROX_GRID_MIN_SOURCES of the JAX package's search/grid.py)
-GRID_MIN_SOURCES = 16_384
+# The grid route's round 1: members per bin of its index and bins probed.
+# Stage 1's [C, n_bins] score block is the larger traffic, so fewer,
+# larger bins beat a smaller member gather; probing fewer than 4 bins
+# loses adjacent-bin recall that the rescue rounds do not fully recover
+# under snap semantics (see ``grid.nearest_member``).
+ROUND1_MEMBERS = 128
+ROUND1_PROBES = 4
 # above this many sources round 1 takes the single nearest centroid
 _NEAR1_MIN_SOURCES = 64
 _FALLBACKS = ("sentinel", "snap", "best", "fixed_ref")
@@ -100,6 +115,7 @@ class _Prep:
     lo: torch.Tensor  # [E, d] f64 AABB
     hi: torch.Tensor  # [E, d] f64
     centroids: torch.Tensor  # [E, d] f64 node means
+    centroids_host: np.ndarray  # the same on the host, read-only
     ctr: torch.Tensor  # [E, d] f64 AABB centres
     inv_scale: torch.Tensor  # [E] f64, 1 / (half the largest extent)
     nodes: torch.Tensor  # [E, n*d] f32 unit-frame lattice
@@ -112,32 +128,43 @@ _PREP_CACHE: dict = {}
 
 def _mesh_prep(elem_nodes: np.ndarray, order: int, device,
                want64: bool = False) -> _Prep:
-    """Per-element geometry, computed in f64 on the host and cached by
-    content fingerprint (a transfer makes many locate calls against one
-    mesh).  ``want64`` also keeps the f64 unit-frame lattice on the
-    device, which only the polish reads (12 MB at E = 4,096, order 4)."""
-    key = (content_fingerprint(elem_nodes), order, str(device), want64)
+    """Per-element geometry, computed in f64 on ``device`` from the host
+    lattice and cached by content fingerprint (a transfer makes many
+    locate calls against one mesh; a read-only lattice is hashed once,
+    see ``hashing.array_fingerprint``).  The arithmetic is elementwise
+    but for the centroid mean, so it rounds as the host's would; at
+    500,000 elements of order 4 the f64 lattice is 1.5 GB, which the card
+    reduces in milliseconds.  ``want64`` also keeps the f64 unit-frame
+    lattice on the device, which only the polish reads."""
+    key = (array_fingerprint(elem_nodes), order, str(device), want64)
     prep = _PREP_CACHE.get(key)
     if prep is None:
         if len(_PREP_CACHE) > 8:
             _PREP_CACHE.clear()
         E, n, d = elem_nodes.shape
-        lo = elem_nodes.min(axis=1)
-        hi = elem_nodes.max(axis=1)
+        with warnings.catch_warnings():
+            # a frozen lattice: it is only read
+            warnings.filterwarnings("ignore", message=".*not writable")
+            x = torch.as_tensor(np.ascontiguousarray(elem_nodes),
+                                device=device)
+        lo, hi = x.amin(dim=1), x.amax(dim=1)
+        centroids = x.mean(dim=1)
         centers = 0.5 * (lo + hi)
-        scales = np.maximum(0.5 * (hi - lo).max(axis=-1), 1e-30)
-        nodes_c = (elem_nodes - centers[:, None, :]) / scales[:, None, None]
-        corners = nodes_c[:, gll.corner_indices(order, d)]
-
-        def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
+        scales = (0.5 * (hi - lo).amax(dim=-1)).clamp_min(1e-30)
+        nodes_c = x - centers[:, None, :]
+        del x
+        nodes_c /= scales[:, None, None]
+        nodes = nodes_c.to(torch.float32).view(E, n * d)
+        corners = nodes_c[:, torch.as_tensor(gll.corner_indices(order, d),
+                                             device=device)]
+        centroids_host = centroids.cpu().numpy()
+        centroids_host.setflags(write=False)
         prep = _Prep(
-            lo=dev(lo), hi=dev(hi), centroids=dev(elem_nodes.mean(axis=1)),
-            ctr=dev(centers), inv_scale=dev(1.0 / scales),
-            nodes=dev(nodes_c.astype(np.float32).reshape(E, n * d)),
-            corners=dev(corners.astype(np.float32).reshape(E, -1)),
-            nodes64=dev(nodes_c.reshape(E, n * d)) if want64 else None,
+            lo=lo, hi=hi, centroids=centroids,
+            centroids_host=centroids_host, ctr=centers,
+            inv_scale=1.0 / scales, nodes=nodes,
+            corners=corners.to(torch.float32).reshape(E, -1),
+            nodes64=nodes_c.view(E, n * d) if want64 else None,
         )
         _PREP_CACHE[key] = prep
     return prep
@@ -214,12 +241,28 @@ def _assemble(fallback, cfg, acc, acc_elem, acc_ref, best_max, best_ref,
             acc | ok)
 
 
-def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, bucket_cands,
-                  centroids, k_full):
+@dataclasses.dataclass(frozen=True)
+class _Rescue:
+    """What the ladder's rescue rounds search with, per route.
+
+    ``bucket_cands(points) -> [B, kk]`` int32 gives rounds 2-3 their
+    candidates when round 1 had one (None below ``_NEAR1_MIN_SOURCES``,
+    where round 1's own columns serve); ``round4(points) -> [B, k]`` the
+    full-budget list.  ``div2``, ``div3``, ``div4``: round r retries the
+    C // div_r hardest failures of a chunk of C rows."""
+
+    bucket_cands: Callable | None
+    round4: Callable
+    div2: int
+    div3: int
+    div4: int
+
+
+def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, rescue_by):
     """The escalation ladder over one chunk.
 
-    points [n, d] f64, cand [n, K] int32 (K = 1: nearest centroid, whose
-    failures take ``bucket_cands(points) -> [B, 8]`` in rounds 2-3).
+    points [n, d] f64, cand [n, K] int32 (K = 1: the nearest centroid or
+    member, whose failures take ``rescue_by.bucket_cands`` in rounds 2-3).
     ``C`` is the chunk's power-of-two row bucket: the rescue bucket sizes
     derive from it exactly as in the JAX package, so both evaluate the
     same rows in every round.  Returns (elements, refs, found, accepted,
@@ -279,14 +322,14 @@ def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, bucket_cands,
 
     # ---- rounds 2-3: the next candidate columns ------------------------
     if K > 1:
-        idx = failure_order(max(C // 4, min(C, 256)))
+        idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
         rescue(cand[idx][:, 1:min(4, K)], idx)
         if K > 4:
-            idx = failure_order(max(C // 8, min(C, 256)))
+            idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
             rescue(cand[idx][:, 4:min(12, K)], idx)
-    elif bucket_cands is not None:
-        idx = failure_order(max(C // 4, min(C, 256)))
-        cand_b = bucket_cands(points[idx])
+    elif rescue_by.bucket_cands is not None:
+        idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
+        cand_b = rescue_by.bucket_cands(points[idx])
         kk = cand_b.shape[1]
         # round 3 reads the parked top-k; a row that enters round 3
         # without a round-2 slot reads zeros and evaluates element 0
@@ -297,11 +340,11 @@ def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, bucket_cands,
         parked[idx] = cand_b
         rescue(cand_b[:, 1:min(4, kk)], idx)
         if kk > 4:
-            idx = failure_order(max(C // 32, min(C, 256)))
+            idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
             rescue(parked[idx][:, 4:kk], idx)
-    # ---- round 4: exact re-search for the hardest failures -------------
-    idx = failure_order(max(C // 128, min(C, 128)))
-    rescue(_knn.knn(centroids, points[idx], k_full)[1], idx)
+    # ---- round 4: full-budget re-search for the hardest failures -------
+    idx = failure_order(max(C // rescue_by.div4, min(C, 128)))
+    rescue(rescue_by.round4(points[idx]), idx)
     full_op = torch.zeros((n,), dtype=torch.bool, device=points.device)
     full_op[idx] = True
 
@@ -387,7 +430,7 @@ def _prefilter_rank(points, cand, solve1, m: int):
     return cand.gather(1, pos.sort(dim=1).values)
 
 
-def _check_scope(E, cfg, fallback, strategy):
+def _check_scope(cfg, fallback, strategy):
     if fallback not in _FALLBACKS:
         raise ValueError(f"unknown fallback mode {fallback!r}")
     if strategy not in _STRATEGIES:
@@ -396,10 +439,6 @@ def _check_scope(E, cfg, fallback, strategy):
         raise NotImplementedError(
             "Precision.F64 is not ported: the kernels solve in f32; "
             "LocateConfig(f64_polish=True) gives f64 refs")
-    if E > GRID_MIN_SOURCES:
-        raise NotImplementedError(
-            f"sources of more than {GRID_MIN_SOURCES} elements take the "
-            f"grid route, not ported yet (ROADMAP A6); got {E}")
 
 
 def _empty(d, device):
@@ -412,13 +451,14 @@ def _empty(d, device):
 
 def _rescan(rows, points, out, prep, evaluate, cfg, fallback, chunk,
             k_full):
-    """Scan rows ``rows`` again with fresh exact candidates (the full
-    ``k_full`` list), chunked, and write their (elements, refs, found,
-    accepted) into ``out`` in place."""
+    """Scan rows ``rows`` again with fresh candidates (the full ``k_full``
+    list of ``grid.knn_any``), chunked, and write their (elements, refs,
+    found, accepted) into ``out`` in place."""
     for rs in range(0, int(rows.shape[0]), chunk):
         r = rows[rs:rs + chunk]
         pts_r = points[r]
-        cand_r = _knn.knn(prep.centroids, pts_r, k_full)[1]
+        cand_r = _grid.knn_any(prep.centroids, pts_r, k_full,
+                               sources_host=prep.centroids_host)[1]
         for dst, src in zip(out, _scan_candidates(pts_r, cand_r, evaluate,
                                                   cfg, fallback, prep)):
             dst[r] = src
@@ -431,27 +471,53 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
     N, d = points.shape
     device = points.device
     E = prep.centroids.shape[0]
-    near1 = E > _NEAR1_MIN_SOURCES
-    bucket_cands = None
-    if near1:
-        center = prep.centroids.mean(dim=0)
-        sources_c32 = (prep.centroids - center).to(torch.float32)
+    if E > _grid.APPROX_GRID_MIN_SOURCES:
+        # the grid route: every search probes the balanced-bin index, so
+        # no stage's cost grows with E.  Probe counts scale inversely with
+        # the bin size, keeping the member coverage (probes x m) fixed:
+        # accuracy is set by how many nearby members a round considers.
+        index = _grid.get_grid_index(prep.centroids_host, ROUND1_MEMBERS,
+                                     device)
+        m = index.members_per_bin
+        kk = min(12, index.n_bins * m)
 
-        def bucket_cands(q):
-            return _knn.centred_topk(sources_c32, q, center, min(8, E))
+        def round1(q):
+            return _grid.nearest_member(index, q,
+                                        n_probe=ROUND1_PROBES)[:, None]
+
+        rescue_by = _Rescue(
+            lambda q: _grid.probe_topk(index, q, kk, max(2, 256 // m)),
+            lambda q: _grid.probe_topk(index, q, cfg.nelem_to_search,
+                                       max(16, 2048 // m)),
+            div2=32, div3=32, div4=32)
+    else:
+        def round4(q):
+            return _knn.knn(prep.centroids, q, k_full)[1]
+
+        if E > _NEAR1_MIN_SOURCES:
+            center = prep.centroids.mean(dim=0)
+            sources_c32 = (prep.centroids - center).to(torch.float32)
+
+            def round1(q):
+                return _knn.nearest_centroid(prep.centroids, q,
+                                             plain=plain)[:, None]
+
+            rescue_by = _Rescue(
+                lambda q: _knn.centred_topk(sources_c32, q, center,
+                                            min(8, E)),
+                round4, div2=4, div3=32, div4=128)
+        else:
+            def round1(q):
+                return _knn.knn(prep.centroids, q, min(k_full, 8))[1]
+
+            rescue_by = _Rescue(None, round4, div2=4, div3=8, div4=128)
 
     outs = []
     for s in range(0, N, chunk):
         pts_c = points[s:s + chunk]
-        n = pts_c.shape[0]
-        if near1:
-            cand = _knn.nearest_centroid(prep.centroids, pts_c,
-                                         plain=plain)[:, None]
-        else:
-            cand = _knn.knn(prep.centroids, pts_c, min(k_full, 8))[1]
-        C = 1 << max(0, n - 1).bit_length()
-        outs.append(_ladder_chunk(pts_c, cand, evaluate, cfg, fallback, C,
-                                  bucket_cands, prep.centroids, k_full))
+        C = 1 << max(0, pts_c.shape[0] - 1).bit_length()
+        outs.append(_ladder_chunk(pts_c, round1(pts_c), evaluate, cfg,
+                                  fallback, C, rescue_by))
     if not outs:
         return (*_empty(d, device), 0)
     elements, refs, found, accepted, needs_retry = (
@@ -488,7 +554,8 @@ def _locate_scan(points, prep, evaluate, solve1, cfg, fallback, chunk,
     outs = []
     for s in range(0, N, chunk):
         pts_c = points[s:s + chunk]
-        cand = _knn.knn(prep.centroids, pts_c, k_full)[1]
+        cand = _grid.knn_any(prep.centroids, pts_c, k_full,
+                             sources_host=prep.centroids_host)[1]
         if prefilter:
             # only the nearest prefilter_pool candidates enter the ranking
             pool = min(max(prefilter_m, cfg.prefilter_pool), k_full)
@@ -560,14 +627,17 @@ def locate(points, elem_nodes, order: int,
     """Locate each query point in the source mesh.
 
     points [N, d] (numpy or tensor; moved to ``device`` as f64);
-    elem_nodes [E, (p+1)^d, d] (numpy or tensor; prepared on the host in
-    f64, see ``_mesh_prep``).  ``fallback`` in {"sentinel", "snap",
+    elem_nodes [E, (p+1)^d, d] (numpy or tensor, any E; prepared in f64,
+    see ``_mesh_prep``; freeze a large lattice with
+    ``setflags(write=False)`` and it is hashed once, not on every call).
+    ``fallback`` in {"sentinel", "snap",
     "best", "fixed_ref"}; ``strategy`` in {"auto", "ladder", "scan"}
     ("auto" is the ladder); ``prefilter_m`` > 0 ranks the scan's
     candidates by the trilinear prefilter; the polish options of ``cfg``
     run on the ladder only (the scan warns and skips them).  On a CUDA
-    device the Newton solves, the round-1 search and the df32 polish run
-    the hand-written kernels; on the CPU, their plain twins.
+    device the Newton solves, the nearest-centroid round 1 (the grid
+    route's searches are stock PyTorch) and the df32 polish run the
+    hand-written kernels; on the CPU, their plain twins.
     ``plain=True`` runs the plain twins on any device (to check the
     kernels against them).
     """
@@ -578,7 +648,7 @@ def locate(points, elem_nodes, order: int,
         elem_nodes = elem_nodes.detach().cpu().numpy()
     elem_nodes = np.asarray(elem_nodes, dtype=np.float64)
     E, _, d = elem_nodes.shape
-    _check_scope(E, cfg, fallback, strategy)
+    _check_scope(cfg, fallback, strategy)
     ladder = strategy != "scan"
     polish = cfg.f64_polish or cfg.df32_polish
     if polish and not ladder:

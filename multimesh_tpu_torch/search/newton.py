@@ -72,10 +72,14 @@ def group_rows(ids, E: int):
     if M > _MAX_ROWS or E >= _MAX_ROWS:
         raise ValueError(f"group_rows: {M} rows of {E} elements, more than "
                          f"the int32 permutation holds")
-    perm = torch.empty((M,), dtype=torch.int32, device=device)
-    counts = torch.empty((E + 1,), dtype=torch.int32, device=device)
     lib = _build.library()
+    perm = torch.empty((M,), dtype=torch.int32, device=device)
+    # scratch: E + 1 bin counters, then one total per tile of the scan
+    n_tiles = -(-(E + 1) // lib.mmt_group_scan_tile())
+    counts = torch.empty((E + 1 + n_tiles,), dtype=torch.int32,
+                         device=device)
     err = lib.mmt_group_rows(ids.data_ptr(), M, E, counts.data_ptr(),
+                             counts[E + 1:].data_ptr(), n_tiles,
                              perm.data_ptr(),
                              torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, err, "group_rows")
@@ -124,13 +128,21 @@ def newton_rows(points, ids, ctr, inv_scale, nodes, order: int, dim: int,
         raise NotImplementedError(
             f"newton_rows: the kernel is built for orders {ORDERS}, "
             f"got {order}")
-    M = points.shape[0]
+    if points.shape[0] == 0:
+        return (torch.empty((0, dim), dtype=torch.float32, device=device),
+                torch.empty((0,), dtype=torch.float32, device=device))
+    return _newton_kernel(group_rows(ids, ctr.shape[0]), points, ids, ctr,
+                          inv_scale, nodes, order, dim, iters, clamp)
+
+
+def _newton_kernel(perm, points, ids, ctr, inv_scale, nodes, order: int,
+                   dim: int, iters: int, clamp: float):
+    """Launch K1 over the rows in the order ``perm`` [M] int32 gives (any
+    permutation gives the same bits; ``group_rows``' grouping makes it
+    fast) on checked CUDA tensors."""
+    M, E, device = points.shape[0], ctr.shape[0], points.device
     refs = torch.empty((M, dim), dtype=torch.float32, device=device)
     res = torch.empty((M,), dtype=torch.float32, device=device)
-    if M == 0:
-        return refs, res
-    E = ctr.shape[0]
-    perm = group_rows(ids, E)
     lib = _build.library()
     err = lib.mmt_newton_rows(
         points.data_ptr(), ids.data_ptr(), perm.data_ptr(), ctr.data_ptr(),

@@ -17,6 +17,7 @@ torch.set_num_threads(2)
 from multimesh_tpu_torch import TransferOperator, _build, testing  # noqa: E402
 from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
 from multimesh_tpu_torch.core import shape  # noqa: E402
+from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
 from multimesh_tpu_torch.search import nearest, newton, polish  # noqa: E402
 
@@ -641,3 +642,82 @@ def test_transfer_arrays_on_card_matches_cpu(dev, polish_mode, monkeypatch):
     host, wait = engine._start_pull(list(vals.split(300)), 300)
     wait(3)
     assert np.array_equal(host, vals.cpu().numpy())
+
+
+@pytest.mark.parametrize("M", [262_144, 8_192])
+def test_group_rows_at_half_a_million_elements(dev, M):
+    """The counting sort over 500,001 bins (its scan walks them all,
+    whatever M): a locate chunk's and a rescue round's rows, a tenth of
+    the ids out of range."""
+    E = 500_000
+    rng = np.random.default_rng(M)
+    ids = rng.integers(0, E, M).astype(np.int32)
+    ids[rng.random(M) < 0.05] = -1
+    ids[rng.random(M) < 0.05] = E + 3
+    ids_d = torch.as_tensor(ids, device=dev)
+    perm = newton.group_rows(ids_d, E)
+    assert torch.equal(torch.sort(perm.long()).values,
+                       torch.arange(M, device=dev))
+    want = newton.group_rows_ref(ids_d, E)
+    key = torch.where((ids_d >= 0) & (ids_d < E), ids_d, E)
+    assert torch.equal(key[perm.long()], key[want.long()])
+
+
+def test_newton_kernel_all_distinct_ids_bitwise_row_order(dev):
+    """Sparse rows, as a 500,000-element source gives them: every row its
+    own element, so no block shares a lattice and nearly every row reads
+    global memory.  Grouped and in row order (the identity permutation)
+    the results are the same bits, and they match the twin."""
+    mesh = testing.box_mesh(shape=(24, 24, 24), order=4, warp=0.1)
+    E = mesh.nelem  # 13,824
+    prep = tloc._mesh_prep(mesh.points, 4, dev)
+    order_ = torch.randperm(E, device=dev)
+    ids = order_.to(torch.int32).contiguous()
+    pts = prep.centroids[order_].contiguous()
+    args = (pts, ids, prep.ctr, prep.inv_scale, prep.nodes, 4, 3, 18, 8.0)
+    g_ref, g_res = newton.newton_rows(*args)
+    ident = torch.arange(E, dtype=torch.int32, device=dev)
+    i_ref, i_res = newton._newton_kernel(ident, *args)
+    assert torch.equal(g_ref, i_ref) and torch.equal(g_res, i_res)
+    p_ref, p_res = newton.newton_refs_rows_ref(*args)
+    ka = (g_res < 1e-4) & (g_ref.abs().amax(-1) < 1.05)
+    pa = (p_res < 1e-4) & (p_ref.abs().amax(-1) < 1.05)
+    assert torch.equal(ka, pa) and bool(ka.all())
+    assert float((g_ref - p_ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("polish_mode", ["f32", "df32"])
+def test_grid_route_on_card_matches_cpu(dev, polish_mode, monkeypatch):
+    """The grid route (threshold lowered to 64, 32-member round-1 bins, a
+    4,096-element order-2 shell: 128 bins, partial probes) on the card
+    against the same call on the CPU: found equal, elements on >= 99.9%
+    of the rows both accept and on >= 99% of all (a snapped exterior row
+    may pick another, equally good boundary element), accepted refs to 1e-5 where elements agree; K1
+    (and K4 with the polish) launched, K2 not."""
+    monkeypatch.setattr(tgrid, "APPROX_GRID_MIN_SOURCES", 64)
+    monkeypatch.setattr(tloc, "ROUND1_MEMBERS", 32)
+    src = testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=2)
+    pts = testing.shell_targets(60_000, seed=12)
+    pts[:6_000] *= 1.5
+    cfg = LocateConfig(df32_polish=polish_mode == "df32")
+    n0, k0 = newton.newton_rows.launches, nearest.nearest.launches
+    p0 = polish.polish_pairs.launches
+    got = tloc.locate(pts, src.points, 2, cfg, fallback="snap", device=dev,
+                      chunk=16_384)
+    assert newton.newton_rows.launches > n0
+    assert nearest.nearest.launches == k0
+    assert (polish.polish_pairs.launches > p0) == (polish_mode == "df32")
+    want = tloc.locate(pts, src.points, 2, cfg, fallback="snap",
+                       device="cpu", chunk=16_384)
+    assert torch.equal(got.found.cpu(), want.found)
+    assert (got.accepted.cpu() == want.accepted).double().mean() >= 0.9999
+    same = got.elements.cpu() == want.elements
+    both = want.accepted & got.accepted.cpu()
+    assert same.double().mean() >= 0.99
+    assert same[both].double().mean() >= 0.999
+    keep = same & both
+    assert float((got.refs.cpu() - want.refs)[keep].abs().max()) <= 1e-5
+    if polish_mode == "df32":
+        pair = got.refs.double() + got.refs_lo.double()
+        w_pair = want.refs.double() + want.refs_lo.double()
+        assert float((pair.cpu() - w_pair)[keep].abs().max()) <= 1e-10

@@ -5,7 +5,10 @@ with the trilinear prefilter.
 
 On the CPU the JAX ladder takes the same route as its TPU path for
 64 < E <= 16,384: nearest-centroid round 1, bucket top-8 rounds 2-3, an
-exact k = 20 round 4, and the scan retry of crowded-out rows.  Its Newton
+exact k = 20 round 4, and the scan retry of crowded-out rows.  Above
+``grid.APPROX_GRID_MIN_SOURCES`` both packages take the grid route
+(nearest-member round 1, probed rescue rounds); the grid tests lower that
+threshold in both so that a 1,024-element source takes it.  Its Newton
 runs f32 bulk iterations plus an f64 polish (convergence at 1e-8), the
 port's the f32 kernel schedule (convergence at 1e-4), so unpolished refs
 agree to f32 grade, not bitwise; polished refs agree to 1e-10.
@@ -25,11 +28,13 @@ from multimesh_tpu.config import LocateConfig  # noqa: E402
 from multimesh_tpu.search import locate as jlocate  # noqa: E402
 # the module (the package's ``locate`` name is the function)
 jlocate_mod = importlib.import_module("multimesh_tpu.search.locate")
+jgrid_mod = importlib.import_module("multimesh_tpu.search.grid")
 from multimesh_tpu_torch.config import (  # noqa: E402
     LocateConfig as TLocateConfig,
 )
 from multimesh_tpu_torch.config import Precision as TPrecision  # noqa: E402
 from multimesh_tpu_torch.config import FALLBACK_REF_COORD  # noqa: E402
+from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
 from multimesh_tpu_torch.search import knn as tknn  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
 
@@ -198,20 +203,15 @@ def test_empty_query_set(shell):
     assert got.weights.shape == (0, 125) and got.found.shape == (0,)
 
 
-@pytest.mark.parametrize("case", ["grid", "f64_precision"])
+@pytest.mark.parametrize("case", ["f64_precision"])
 def test_out_of_slice_options_raise(case):
-    """Options outside the ported slice raise NotImplementedError naming
-    what is missing instead of silently taking another path."""
+    """Options outside the port raise NotImplementedError naming what is
+    missing instead of silently taking another path."""
     mesh = jmt.box_mesh(shape=(2, 2, 2), order=1)
     pts = np.full((4, 3), 0.5)
-    cfg, nodes = TLocateConfig(), mesh.points
-    if case == "grid":
-        nodes, item = np.zeros((16_385, 8, 3)), "A6"
-    else:
-        cfg = TLocateConfig(precision=TPrecision.F64)
-        item = "Precision.F64"
-    with pytest.raises(NotImplementedError, match=item):
-        tloc.locate(pts, nodes, 1, cfg, device="cpu")
+    cfg = TLocateConfig(precision=TPrecision.F64)
+    with pytest.raises(NotImplementedError, match="Precision.F64"):
+        tloc.locate(pts, mesh.points, 1, cfg, device="cpu")
 
 
 def test_unknown_fallback_and_device_raise():
@@ -425,3 +425,139 @@ def test_scan_skips_polish_with_a_warning(shell):
                           TLocateConfig(df32_polish=True), strategy="scan",
                           device="cpu")
     assert got.refs_lo is None and got.refs.dtype == torch.float32
+
+
+# ---- the grid route (sources above grid.APPROX_GRID_MIN_SOURCES) ---------
+
+N_GRID = 2000
+
+
+@pytest.fixture(scope="module")
+def grid_shell():
+    """E = 1,024 in 32 bins of 32 members, so every probe is partial (4
+    of 32 bins in round 1, 8 in rounds 2-3, 64 -> all only in round 4);
+    one tenth of the targets lie outside the shell (the snapped rows
+    among them are the ones that may pick another element: their
+    best-so-far is judged by f64 convergence at 1e-8 there, f32 at 1e-4
+    here)."""
+    mesh = jmt.shell_mesh(n_lat=16, n_lon=16, n_rad=4, order=2)
+    rng = np.random.default_rng(21)
+    r = rng.uniform(3.6e6, 6.2e6, N_GRID)
+    th = rng.uniform(0.55, 1.15, N_GRID)
+    ph = rng.uniform(0.35, 1.35, N_GRID)
+    pts = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+                    r * np.cos(th)], -1)
+    pts[: N_GRID // 10] *= 1.5
+    return mesh, pts, jmt.element_nodal_field(mesh, "smooth")
+
+
+@pytest.fixture
+def grid_route(monkeypatch):
+    """Both packages' ladders on the grid route for E > 64, with
+    32-member round-1 bins.  Both read the threshold when called."""
+    monkeypatch.setattr(jgrid_mod, "APPROX_GRID_MIN_SOURCES", 64)
+    monkeypatch.setenv("MMT_R1_M", "32")
+    monkeypatch.setattr(tgrid, "APPROX_GRID_MIN_SOURCES", 64)
+    monkeypatch.setattr(tloc, "ROUND1_MEMBERS", 32)
+
+
+@pytest.mark.parametrize("fallback", ["sentinel", "snap"])
+def test_grid_ladder_matches_jax(grid_shell, grid_route, fallback):
+    """The grid ladder held as ``test_locate_matches_jax`` holds the small
+    route: ``found`` equal on every row, elements on >= 95%, values to
+    rtol 1e-5 on rows both accept with the same element."""
+    mesh, pts, field = grid_shell
+    want = jlocate(pts, mesh.points, 2, fallback=fallback, engine="xla",
+                   strategy="ladder")
+    tgrid._INDEX_CACHE.clear()
+    got = tloc.locate(pts, mesh.points, 2, fallback=fallback, device="cpu")
+    (index,) = tgrid._INDEX_CACHE.values()  # the route probed its index
+    assert index.members_per_bin == 32 and index.n_bins == 32
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(want.found))
+    ge, we = got.elements.numpy(), np.asarray(want.elements)
+    assert (ge == we).mean() >= 0.95
+    accepted = got.accepted.numpy()
+    assert accepted[N_GRID // 10:].all() and not accepted[: N_GRID // 10].all()
+    if fallback == "sentinel":
+        np.testing.assert_array_equal(accepted, np.asarray(want.found))
+    same = accepted & (ge == we)
+    assert same.mean() > 0.8
+    np.testing.assert_allclose(_values(ge, got.weights.numpy(), field)[same],
+                               _values(we, want.weights, field)[same],
+                               rtol=1e-5)
+
+
+def test_grid_ladder_fixed_ref_and_aabb_match_jax(grid_shell, grid_route):
+    """``fixed_ref`` + ``use_aabb`` over the grid route: every unaccepted
+    row takes the scan retry in both packages, so elements and found are
+    identical to the JAX ladder's, refs to f32 grade."""
+    mesh, pts, _ = grid_shell
+    want = jlocate(pts, mesh.points, 2, fallback="fixed_ref", use_aabb=True,
+                   engine="xla", strategy="ladder")
+    got = tloc.locate(pts, mesh.points, 2, fallback="fixed_ref",
+                      use_aabb=True, device="cpu")
+    np.testing.assert_array_equal(got.elements.numpy(),
+                                  np.asarray(want.elements))
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(want.found))
+    np.testing.assert_allclose(got.refs.numpy(), np.asarray(want.refs),
+                               atol=1e-5)
+    assert got.found.all() and got.n_retry >= int((~got.accepted).sum()) > 0
+
+
+def test_grid_ladder_accepts_what_the_exact_ladder_accepts(grid_shell,
+                                                           grid_route,
+                                                           monkeypatch):
+    """The route is a matter of cost, not of result: on the same source
+    the grid ladder and the exact-search ladder accept the same rows, in
+    the same elements on >= 99%, and a df32 polish runs on either."""
+    mesh, pts, _ = grid_shell
+    cfg = TLocateConfig(df32_polish=True)
+    via_grid = tloc.locate(pts, mesh.points, 2, cfg, device="cpu")
+    monkeypatch.setattr(tgrid, "APPROX_GRID_MIN_SOURCES", 16_384)
+    exact = tloc.locate(pts, mesh.points, 2, cfg, device="cpu")
+    assert torch.equal(via_grid.accepted, exact.accepted)
+    assert (via_grid.elements == exact.elements).double().mean() >= 0.99
+    assert via_grid.refs_lo is not None
+    assert (via_grid.refs_lo[via_grid.accepted] != 0).any()
+
+
+def test_scan_above_exact_knn_limit_matches_jax(grid_shell, monkeypatch):
+    """Above ``EXACT_KNN_MAX_SOURCES`` (lowered to 100 in both packages)
+    the scan's candidates come from ``grid_knn`` (8 probed 128-member
+    bins: all 8 here): found equal, values against the JAX scan to rtol
+    1e-5 where both accept in the same element."""
+    mesh, pts, field = grid_shell
+    pts = pts[N_GRID // 10 - 100:N_GRID // 10 + 500]
+    monkeypatch.setattr(jgrid_mod, "EXACT_KNN_MAX_SOURCES", 100)
+    monkeypatch.setattr(tgrid, "EXACT_KNN_MAX_SOURCES", 100)
+    want = jlocate(pts, mesh.points, 2, fallback="sentinel", engine="xla",
+                   strategy="scan")
+    tgrid._INDEX_CACHE.clear()
+    got = tloc.locate(pts, mesh.points, 2, fallback="sentinel",
+                      strategy="scan", device="cpu")
+    (index,) = tgrid._INDEX_CACHE.values()
+    assert index.members_per_bin == 128
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(want.found))
+    assert got.found[100:].all() and not got.found[:100].all()
+    ge, we = got.elements.numpy(), np.asarray(want.elements)
+    same = got.found.numpy() & (ge == we)
+    assert same.mean() > 0.8
+    np.testing.assert_allclose(_values(ge, got.weights.numpy(), field)[same],
+                               _values(we, want.weights, field)[same],
+                               rtol=1e-5)
+
+
+def test_frozen_lattice_is_prepared_once(grid_shell):
+    """A read-only lattice is hashed and prepared once; the prep keeps a
+    read-only host copy of the centroids for the grid index."""
+    mesh, pts, _ = grid_shell
+    nodes = mesh.points.copy()
+    nodes.setflags(write=False)
+    a = tloc._mesh_prep(nodes, 2, torch.device("cpu"))
+    assert tloc._mesh_prep(nodes, 2, torch.device("cpu")) is a
+    assert not a.centroids_host.flags.writeable
+    np.testing.assert_allclose(a.centroids_host, nodes.mean(axis=1),
+                               rtol=1e-14)
+    np.testing.assert_array_equal(a.centroids.numpy(), a.centroids_host)
+    got = tloc.locate(pts[N_GRID // 10:][:64], nodes, 2, device="cpu")
+    assert got.found.all()

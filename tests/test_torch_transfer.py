@@ -26,6 +26,7 @@ from multimesh_tpu_torch.core import gll as tgll  # noqa: E402
 from multimesh_tpu_torch.hashing import (  # noqa: E402
     content_fingerprint as t_fingerprint,
 )
+from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
 from multimesh_tpu_torch.search import locate as tlocate  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -210,7 +211,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 23
+    assert int(out.stdout.split()[1]) >= 24
+    assert 'multimesh_tpu_torch.search.grid' in sys.modules
 
 
 @pytest.fixture(scope="module")
@@ -338,3 +340,61 @@ def test_scan_locate_result_applies_as_the_ladder(slice_case, torch_op):
     f = torch.from_numpy(fields)
     np.testing.assert_allclose(op.apply(f).numpy(),
                                torch_op.apply(f)[:512].numpy(), rtol=1e-5)
+
+
+def test_grid_route_operator_matches_jax(monkeypatch):
+    """build + apply over the grid route (the threshold lowered to 64 in
+    both packages, 32-member round-1 bins, so a 1,024-element order-2
+    shell takes it) against the JAX operator of the JAX ladder on the same
+    route: the applied values differ by at most 1e-5 of the field's range
+    on every row (all targets inside the shell; on a shared face either
+    element interpolates the same continuous field), and the JAX
+    operator's arrays, taken over with ``from_numpy``, apply identically
+    in both packages to f32 rounding."""
+    import importlib
+
+    from multimesh_tpu.search import locate as jlocate
+
+    jgrid = importlib.import_module("multimesh_tpu.search.grid")
+    monkeypatch.setattr(jgrid, "APPROX_GRID_MIN_SOURCES", 64)
+    monkeypatch.setenv("MMT_R1_M", "32")
+    monkeypatch.setattr(tgrid, "APPROX_GRID_MIN_SOURCES", 64)
+    monkeypatch.setattr(tlocate, "ROUND1_MEMBERS", 32)
+    mesh = jmt.shell_mesh(n_lat=16, n_lon=16, n_rad=4, order=2)
+    rng = np.random.default_rng(8)
+    r = rng.uniform(3.6e6, 6.3e6, N)
+    th = rng.uniform(0.55, 1.15, N)
+    ph = rng.uniform(0.35, 1.35, N)
+    pts = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
+                    r * np.cos(th)], -1)
+    base = jmt.element_nodal_field(mesh, "smooth")
+    fields = np.stack([base * (1 + 0.1 * i) for i in range(3)])
+    span = fields.max() - fields.min()
+
+    res = jlocate(pts, mesh.points, 2,
+                  LocateConfig(nelem_to_search=20, precision=Precision.MIXED),
+                  fallback="snap", engine="xla", strategy="ladder",
+                  want_weights=False)
+    j_op = JOp(elements=res.elements, order=2, refs=res.refs,
+               found=res.found)
+    want = np.asarray(j_op.apply(jnp.asarray(fields)))
+
+    tgrid._INDEX_CACHE.clear()
+    t_op = TOp.build(mesh.points, pts, order=2,
+                     cfg=tconfig.LocateConfig(
+                         nelem_to_search=20,
+                         precision=tconfig.Precision.MIXED),
+                     fallback="snap", device="cpu")
+    assert len(tgrid._INDEX_CACHE) == 1  # the grid route ran
+    got = t_op.apply(fields).numpy()
+    assert got.shape == want.shape == (N, 3)
+    assert t_op.found.all() and np.asarray(res.found).all()
+    assert (t_op.elements.numpy() == np.asarray(res.elements)).mean() >= 0.95
+    assert np.abs(got - want).max() <= 1e-5 * span
+    truth = jmt.smooth_field(pts)
+    assert np.abs(got[:, 0] / truth - 1).max() < 1e-3  # order 2, coarse
+
+    carried = TOp.from_numpy(np.asarray(res.elements), np.asarray(res.refs),
+                             np.asarray(res.found), 2, device="cpu")
+    np.testing.assert_allclose(carried.apply(fields).numpy(), want,
+                               rtol=1e-6, atol=1e-6 * span)
