@@ -52,14 +52,18 @@ each on stdout:
    kNN, K1 against its twin on round 1's sparse rows (nearly every row
    its own element) with and without its grouping, one warm-up and three
    timed runs of the slice, its first chunk against the plain path, and
-   the slice once more with the df32 polish (K1, K4, K5).
+   the slice once more with the df32 polish (K1, K4, K5); every column
+   of both runs against its analytic field, the df32 run's first chunk
+   against the plain twins (pair refs and all 3 columns), and K4 and K5
+   against their twins on that chunk's own sparse rows.
 
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
 slice's run, as ``launches_file`` in the file path's df32 call and as
 ``launches_big`` in the grid route's df32 run,
 K5 also with ``max_rel_diff_file`` against its twin on that call's
-inputs; the times of K1, K4 and K5 include their grouping pre-pass,
+inputs, K4 with ``max_abs_diff_big`` and K5 with ``max_rel_diff_big``
+against their twins on the first chunk of the grid route's df32 run; the times of K1, K4 and K5 include their grouping pre-pass,
 also timed alone as ``group_ms``, and K4's and K5's kernel alone as
 ``kernel_ms``) and, last, the ``{"ok": true, ...}`` line.  Any
 failed check raises: the script exits non-zero and prints no ``ok``
@@ -153,6 +157,13 @@ def read_launches():
 
 def max_rel(vals, truth):
     return float(((vals.double() - truth).abs() / truth.abs()).max())
+
+
+def max_rel_columns(vals, truth):
+    """``max_rel`` of each column i of ``vals`` against the i-th field of
+    the runs, ``truth * (1 + 0.1 i)``."""
+    return [max_rel(vals[:, i], truth * (1 + 0.1 * i))
+            for i in range(vals.shape[1])]
 
 
 def cuda_ms(fn, reps):
@@ -1058,7 +1069,9 @@ def _host_s(fn):
 
 def phase_big(dev, smi, big, pts_d, truth):
     """The grid route at the ``gll_big`` shape (see the module docstring).
-    Returns the launch counts of its df32 run."""
+    Returns the launch counts of its df32 run and, on that run's first
+    chunk, K4's largest pair-ref difference and K5's largest relative
+    difference against their twins."""
     src, fields_h, mesh_s = big
     E, order, dim = src.nelem, src.order, src.dim
     check(E > grid.APPROX_GRID_MIN_SOURCES and E > grid.EXACT_KNN_MAX_SOURCES,
@@ -1224,7 +1237,8 @@ def phase_big(dev, smi, big, pts_d, truth):
     check(tuple(vals.shape) == (N_TARGETS, 3), f"shape {tuple(vals.shape)}")
     check(bool(torch.isfinite(vals).all()), "non-finite values")
     check(bool(op.found.all()), "snap left a target unassigned")
-    rel = max_rel(vals[:, 0], truth)
+    rels = max_rel_columns(vals, truth)
+    rel = max(rels)
     p_op, p_vals, _, _ = run(q, plain=True)
     same = op.elements[:ROWS] == p_op.elements
     agree = float(same.double().mean())
@@ -1242,9 +1256,55 @@ def phase_big(dev, smi, big, pts_d, truth):
     d_op, d_vals, d_build, d_apply = run(pts_d, cfg=DF32_CFG)
     d_wall = time.perf_counter() - t0
     d_launches = read_launches()
-    d_rel = max_rel(d_vals[:, 0], truth)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(d_op.refs_lo is not None and d_vals.dtype == torch.float64,
           "the df32 polish did not run")
+    d_rels = max_rel_columns(d_vals, truth)
+    d_rel = max(d_rels)
+    # K4 and K5 at this shape: the first chunk through the plain twins,
+    # pair refs and all 3 columns where the elements agree; then each
+    # kernel on the run's own sparse rows against its twin
+    dp_op, _, _, _ = run(q, cfg=DF32_CFG, plain=True)
+    dp_vals = polish.apply_pairs_ref(dp_op.refs, dp_op.refs_lo,
+                                     dp_op.elements, fields, order, 3)
+    d_same = d_op.elements[:ROWS] == dp_op.elements
+    d_agree = float(d_same.double().mean())
+    pair = d_op.refs[:ROWS].double() + d_op.refs_lo[:ROWS].double()
+    p_pair = dp_op.refs.double() + dp_op.refs_lo.double()
+    d_ref_diff = float((pair - p_pair)[d_same].abs().max())
+    d_vdiffs = [float(c) for c in (
+        (d_vals[:ROWS] - dp_vals).abs() / dp_vals.abs())[d_same].amax(dim=0)]
+    del dp_op, dp_vals, pair, p_pair
+    prep = _locate._mesh_prep(src.points, order, dev, want64=True)
+    el = d_op.elements[:ROWS].contiguous()
+    pargs = (q.contiguous(), el, d_op.refs[:ROWS].contiguous(), prep.ctr,
+             prep.inv_scale, prep.nodes64, order, dim,
+             DF32_CFG.df32_polish_iters)
+    hi, lo, ok = polish.polish_pairs(*pargs)
+    t_hi, t_lo, t_ok = polish.polish_pairs_ref(*pargs)
+    k4_ok_agree = float((ok == t_ok).double().mean())
+    k4_diff = float(((hi.double() + lo.double())
+                     - (t_hi.double() + t_lo.double()))[ok & t_ok].abs().max())
+    k4_times = _grouped_times(polish.polish_pairs, polish._polish_kernel,
+                              pargs, el, E)
+    aargs = (d_op.refs[:ROWS].contiguous(),
+             d_op.refs_lo[:ROWS].contiguous(), el, fields, order, 3)
+    k5_rel, _, _, k5_got = _apply_rel(aargs)
+    k5_col_rel = [float(c) for c in (
+        (k5_got - d_vals[:ROWS]).abs() / d_vals[:ROWS].abs()).amax(dim=0)]
+    k5_times = _grouped_times(polish.apply_pairs, polish._apply_kernel,
+                              aargs, el, E)
+    big_pairs = {
+        "rows": ROWS, "distinct_elements": int(torch.unique(el).numel()),
+        "plain_elements_agree": d_agree,
+        "plain_max_abs_ref_diff": d_ref_diff,
+        "plain_max_rel_diff_columns": d_vdiffs,
+        "k4_ok_agree": k4_ok_agree, "k4_max_abs_diff_vs_twin": k4_diff,
+        **{f"k4_{k}": v for k, v in k4_times.items()},
+        "k5_max_rel_diff_vs_twin": k5_rel,
+        "k5_max_rel_diff_vs_run_columns": k5_col_rel,
+        **{f"k5_{k}": v for k, v in k5_times.items()}}
+    del hi, lo, ok, t_hi, t_lo, t_ok, pargs, aargs, k5_got
     walls_sorted = sorted(walls)
     emit({"phase": "big slice", "nvidia_smi": smi, "targets": N_TARGETS,
           "elements": E, "params": 3, "walls_s": walls,
@@ -1254,12 +1314,16 @@ def phase_big(dev, smi, big, pts_d, truth):
           "mpts_per_s_median": N_TARGETS / walls_sorted[1] / 1e6,
           "one_chunk_locate_s": chunk_s, "n_retry": n_retry,
           "launches": launches, "max_rel_err": rel,
+          "max_rel_err_columns": rels,
           "plain_elements_agree": agree, "plain_max_rel_diff": vdiff,
           "df32": {"prep64_s": prep64_s, "wall_s": d_wall,
                    "build_s": d_build, "apply_s": d_apply,
                    "launches": d_launches, "max_rel_err": d_rel,
-                   "n_retry": d_op.n_retry},
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+                   "max_rel_err_columns": d_rels,
+                   "n_retry": d_op.n_retry, "first_chunk": big_pairs},
+          # of the phase up to the df32 run; then with the twins' chunk
+          "peak_mem_gb": peak_gb, "peak_mem_gb_with_twins":
+              torch.cuda.max_memory_allocated() / 1e9})
     check(rel < 1e-6, f"big slice max rel err {rel:.3g} >= 1e-6")
     check(agree >= 0.999, f"big plain path elements agree {agree:.6f}")
     check(vdiff <= 1e-5, f"big plain path values differ by {vdiff:.3g}")
@@ -1267,7 +1331,18 @@ def phase_big(dev, smi, big, pts_d, truth):
     check(all(d_launches[k] > 0 for k in ("newton_rows", "polish_pairs",
                                           "apply_pairs")),
           f"a kernel of the big df32 path was not launched: {d_launches}")
-    return d_launches
+    check(d_agree >= 0.999, f"big df32 plain path elements agree "
+          f"{d_agree:.6f}")
+    check(d_ref_diff <= 1e-10, f"big df32 plain path pair refs differ by "
+          f"{d_ref_diff:.3g}")
+    check(max(d_vdiffs) <= 1e-10, f"big df32 plain path values differ by "
+          f"{d_vdiffs}")
+    check(k4_ok_agree >= 0.9999, f"big K4 ok agreement {k4_ok_agree:.6f}")
+    check(k4_diff <= 1e-11, f"big K4 hi+lo differ by {k4_diff:.3g}")
+    check(k5_rel <= 1e-12, f"big K5 values differ by {k5_rel:.3g} relative")
+    check(max(k5_col_rel) <= 1e-12, f"big K5 on the run's rows differs "
+          f"from the run's values by {k5_col_rel}")
+    return d_launches, k4_diff, k5_rel
 
 
 def profile(dev, src, pts_d, fields, targets, case, big):
@@ -1370,7 +1445,8 @@ def main():
     del src, centroids
     clear_caches()
     big = big_source()
-    launches_big = phase_big(
+    (launches_big, k4["max_abs_diff_big"],
+     k5["max_rel_diff_big"]) = phase_big(
         dev, smi, big,
         torch.as_tensor(testing.shell_targets(N_TARGETS, seed=0), device=dev),
         truth)

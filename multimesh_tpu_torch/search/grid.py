@@ -251,29 +251,18 @@ def grid_knn(index: GridIndex, queries, k: int, *, n_probe: int = 8):
     return _grid_query(index, queries, k, n_probe, index.bin_coords64)
 
 
-def spatial_order(sources) -> np.ndarray:
-    """Permutation placing spatially adjacent sources at adjacent indices
-    (the concatenated members of 32-member median-split bins, whose DFS
-    order walks the domain like a space-filling curve)."""
-    cents = np.asarray(sources, np.float64)
-    return np.concatenate(_median_split(cents, 32)).astype(np.int64)
-
-
-def knn_any(sources, queries, k: int, *, approx: bool = False,
-            sources_host=None, n_probe: int = 8):
+def knn_any(sources, queries, k: int, *, sources_host=None,
+            n_probe: int = 8):
     """Candidate search dispatcher: (dist2 [N, k] f64, idx [N, k] int32).
 
     ``sources`` [E, d] and ``queries`` [N, d] are f64 tensors on one
-    device.  Up to ``EXACT_KNN_MAX_SOURCES`` sources (with ``approx``,
-    for callers that have a rescue path: up to
-    ``APPROX_GRID_MIN_SOURCES``) the exact ``knn.knn`` runs; beyond, the
-    balanced-bin search with exact selection over the members of
-    ``n_probe`` bins.  The grid index is cached by the content of the
+    device.  Up to ``EXACT_KNN_MAX_SOURCES`` sources the exact
+    ``knn.knn`` runs; beyond, the balanced-bin search with exact selection
+    over the members of ``n_probe`` bins.  The grid index is cached by the content of the
     sources; ``sources_host``, the same values as a host array, spares
     copying them back (and, read-only, hashing them) on every call."""
     E = sources.shape[0]
-    limit = APPROX_GRID_MIN_SOURCES if approx else EXACT_KNN_MAX_SOURCES
-    if E <= limit:
+    if E <= EXACT_KNN_MAX_SOURCES:
         return _knn.knn(sources, queries, k)
     if sources_host is None:
         sources_host = sources.detach().cpu().numpy()

@@ -108,7 +108,7 @@ class LocateResult:
     n_retry: int = 0
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class _Prep:
     """Per-element geometry on the device (see ``_mesh_prep``)."""
 
@@ -120,10 +120,29 @@ class _Prep:
     inv_scale: torch.Tensor  # [E] f64, 1 / (half the largest extent)
     nodes: torch.Tensor  # [E, n*d] f32 unit-frame lattice
     corners: torch.Tensor  # [E, 2^d*d] f32 unit-frame corner nodes
-    nodes64: torch.Tensor | None  # [E, n*d] f64 lattice, for a polish
+    # [E, n*d] f64 lattice, attached when a polish first asks for it
+    nodes64: torch.Tensor | None = None
 
 
 _PREP_CACHE: dict = {}
+
+
+def _upload(elem_nodes: np.ndarray, device) -> torch.Tensor:
+    with warnings.catch_warnings():
+        # a frozen lattice: it is only read
+        warnings.filterwarnings("ignore", message=".*not writable")
+        return torch.as_tensor(np.ascontiguousarray(elem_nodes),
+                               device=device)
+
+
+def _unit_frame(x, lo, hi):
+    """(AABB centres, half the largest extents, the lattice ``x`` in its
+    elements' unit frames; f64)."""
+    centers = 0.5 * (lo + hi)
+    scales = (0.5 * (hi - lo).amax(dim=-1)).clamp_min(1e-30)
+    nodes_c = x - centers[:, None, :]
+    nodes_c /= scales[:, None, None]
+    return centers, scales, nodes_c
 
 
 def _mesh_prep(elem_nodes: np.ndarray, order: int, device,
@@ -135,26 +154,19 @@ def _mesh_prep(elem_nodes: np.ndarray, order: int, device,
     but for the centroid mean, so it rounds as the host's would; at
     500,000 elements of order 4 the f64 lattice is 1.5 GB, which the card
     reduces in milliseconds.  ``want64`` also keeps the f64 unit-frame
-    lattice on the device, which only the polish reads."""
-    key = (array_fingerprint(elem_nodes), order, str(device), want64)
+    lattice on the device, which only the polish reads: the one cached
+    prep of a mesh gains it when a polish first asks."""
+    key = (array_fingerprint(elem_nodes), order, str(device))
     prep = _PREP_CACHE.get(key)
+    E, n, d = elem_nodes.shape
     if prep is None:
         if len(_PREP_CACHE) > 8:
             _PREP_CACHE.clear()
-        E, n, d = elem_nodes.shape
-        with warnings.catch_warnings():
-            # a frozen lattice: it is only read
-            warnings.filterwarnings("ignore", message=".*not writable")
-            x = torch.as_tensor(np.ascontiguousarray(elem_nodes),
-                                device=device)
+        x = _upload(elem_nodes, device)
         lo, hi = x.amin(dim=1), x.amax(dim=1)
         centroids = x.mean(dim=1)
-        centers = 0.5 * (lo + hi)
-        scales = (0.5 * (hi - lo).amax(dim=-1)).clamp_min(1e-30)
-        nodes_c = x - centers[:, None, :]
+        centers, scales, nodes_c = _unit_frame(x, lo, hi)
         del x
-        nodes_c /= scales[:, None, None]
-        nodes = nodes_c.to(torch.float32).view(E, n * d)
         corners = nodes_c[:, torch.as_tensor(gll.corner_indices(order, d),
                                              device=device)]
         centroids_host = centroids.cpu().numpy()
@@ -162,11 +174,15 @@ def _mesh_prep(elem_nodes: np.ndarray, order: int, device,
         prep = _Prep(
             lo=lo, hi=hi, centroids=centroids,
             centroids_host=centroids_host, ctr=centers,
-            inv_scale=1.0 / scales, nodes=nodes,
+            inv_scale=1.0 / scales,
+            nodes=nodes_c.to(torch.float32).view(E, n * d),
             corners=corners.to(torch.float32).reshape(E, -1),
             nodes64=nodes_c.view(E, n * d) if want64 else None,
         )
         _PREP_CACHE[key] = prep
+    elif want64 and prep.nodes64 is None:
+        prep.nodes64 = _unit_frame(_upload(elem_nodes, device), prep.lo,
+                                   prep.hi)[2].view(E, n * d)
     return prep
 
 

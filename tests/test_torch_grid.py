@@ -165,8 +165,8 @@ def test_row_blocks_give_the_same_result(shell_cents, rng, monkeypatch):
 
 def test_knn_any_dispatch(rng):
     """Exact below 131,072 sources, the grid above (200,000 random
-    sources); ``approx`` moves the switch to 16,384.  Distances ascend
-    and the first column is the true nearest."""
+    sources).  Distances ascend and the first column is the true
+    nearest."""
     q = rng.uniform(0, 1, size=(100, 3))
     q_t = torch.from_numpy(q)
     src = rng.uniform(0, 1, size=(500, 3))
@@ -195,17 +195,6 @@ def test_knn_any_dispatch(rng):
     _, i_exact = tgrid.knn_any(mid_t, q_t, 5)
     assert not tgrid._INDEX_CACHE  # exact: no index was built
     assert torch.equal(i_exact, tknn.knn(mid_t, q_t, 5)[1])
-    _, i_grid = tgrid.knn_any(mid_t, q_t, 5, approx=True)
-    assert len(tgrid._INDEX_CACHE) == 1
-    np.testing.assert_allclose(_dist(mid, i_grid, q), _dist(mid, i_exact, q),
-                               rtol=1e-5)
-
-
-def test_spatial_order_matches_jax(shell_cents):
-    got = tgrid.spatial_order(shell_cents)
-    np.testing.assert_array_equal(got, jgrid.spatial_order(shell_cents))
-    np.testing.assert_array_equal(np.sort(got),
-                                  np.arange(shell_cents.shape[0]))
 
 
 def test_get_grid_index_is_cached_by_content(rng):

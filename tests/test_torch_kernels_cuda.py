@@ -307,16 +307,24 @@ def test_scan_retry_on_card_matches_plain_path(dev):
         <= 1e-5
 
 
-def _polish_rows(dev, order, dim, M, seed, shape_=None):
+def _row_ids(rng, nelem, M, distinct):
+    """M element ids: random, or with ``distinct`` no two the same."""
+    if distinct:
+        return rng.permutation(nelem)[:M].astype(np.int32)
+    return rng.integers(0, nelem, M, dtype=np.int32)
+
+
+def _polish_rows(dev, order, dim, M, seed, shape_=None, distinct=False):
     """Known refs in a warped box mesh, the f64 points they map to, and
-    f32 warm starts 3e-6 off: the polish's arguments and the true refs."""
+    f32 warm starts 3e-6 off: the polish's arguments and the true refs.
+    With ``distinct`` every row has an element of its own (M of the
+    mesh's elements, shuffled)."""
     shape_ = shape_ or ((6, 6, 6) if dim == 3 else (20, 20))
     mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
     prep = tloc._mesh_prep(mesh.points, order, dev, want64=True)
     rng = np.random.default_rng(seed)
     refs = torch.as_tensor(rng.uniform(-0.95, 0.95, (M, dim)), device=dev)
-    ids = torch.as_tensor(rng.integers(0, mesh.nelem, M, dtype=np.int32),
-                          device=dev)
+    ids = torch.as_tensor(_row_ids(rng, mesh.nelem, M, distinct), device=dev)
     nodes = torch.as_tensor(mesh.points, device=dev)[ids.long()]
     pts = shape.forward_map(order, nodes, refs).contiguous()
     ref0 = (refs + torch.as_tensor(rng.uniform(-3e-6, 3e-6, (M, dim)),
@@ -417,9 +425,10 @@ def test_polish_kernel_slot_overflow_matches_slotted(dev, order, dim):
                  .abs().max()) < 1e-10
 
 
-def _apply_rows(dev, order, dim, M, F, seed, shape_=None):
-    """Random pair refs in random elements of a warped box mesh and F
-    smooth fields: apply_pairs' arguments."""
+def _apply_rows(dev, order, dim, M, F, seed, shape_=None, distinct=False):
+    """Random pair refs in random elements of a warped box mesh (with
+    ``distinct`` no two rows in one element) and F smooth fields:
+    apply_pairs' arguments."""
     shape_ = shape_ or ((6, 6, 6) if dim == 3 else (20, 20))
     mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
     rng = np.random.default_rng(seed)
@@ -429,8 +438,7 @@ def _apply_rows(dev, order, dim, M, F, seed, shape_=None):
     refs = rng.uniform(-1, 1, (M, dim))
     hi = torch.as_tensor(refs.astype(np.float32), device=dev)
     lo = (torch.as_tensor(refs, device=dev) - hi.double()).float()
-    el = torch.as_tensor(rng.integers(0, mesh.nelem, M, dtype=np.int32),
-                         device=dev)
+    el = torch.as_tensor(_row_ids(rng, mesh.nelem, M, distinct), device=dev)
     return [hi, lo, el, fields, order, dim]
 
 
@@ -684,6 +692,51 @@ def test_newton_kernel_all_distinct_ids_bitwise_row_order(dev):
     pa = (p_res < 1e-4) & (p_ref.abs().amax(-1) < 1.05)
     assert torch.equal(ka, pa) and bool(ka.all())
     assert float((g_ref - p_ref).abs().max()) <= 1e-5
+
+
+def test_polish_kernel_all_distinct_ids_bitwise_row_order(dev):
+    """K4 on sparse rows (13,824 rows, every one its own element: each
+    block has far more runs than slots, so nearly every row reads the f64
+    lattice from global memory): grouped and in row order the same bits,
+    ok everywhere, hi + lo to 1e-12 of the twin's and within 1e-10 of the
+    known refs."""
+    M = 24 ** 3
+    args, refs = _polish_rows(dev, 4, 3, M, seed=21, shape_=(24, 24, 24),
+                              distinct=True)
+    assert torch.unique(args[1]).numel() == M
+    grouped = polish.polish_pairs(*args, 1)
+    ident = torch.arange(M, dtype=torch.int32, device=dev)
+    row_order = polish._polish_kernel(ident, *args, 1)
+    torch.cuda.synchronize()
+    for x, y in zip(row_order, grouped):
+        assert torch.equal(_bits(x), _bits(y))
+    p_hi, p_lo, p_ok = polish.polish_pairs_ref(*args, 1)
+    assert torch.equal(grouped[2], p_ok) and bool(p_ok.all())
+    got = grouped[0].double() + grouped[1].double()
+    assert float((got - (p_hi.double() + p_lo.double())).abs().max()) <= 1e-12
+    assert float((got - refs).abs().max()) < 1e-10
+
+
+def test_apply_kernel_all_distinct_ids_bitwise_row_order(dev):
+    """K5 on sparse rows (13,824 rows, every one its own element, 3
+    parameters, a few ids -1): grouped and in row order the same bits,
+    every column within 1e-12 relative of the twin, 0 where the id is
+    -1."""
+    M = 24 ** 3
+    args = _apply_rows(dev, 4, 3, M, 3, seed=22, shape_=(24, 24, 24),
+                       distinct=True)
+    args[2][::97] = -1
+    el = args[2]
+    assert torch.unique(el[el >= 0]).numel() == int((el >= 0).sum())
+    grouped = polish.apply_pairs(*args)
+    ident = torch.arange(M, dtype=torch.int32, device=dev)
+    row_order = polish._apply_kernel(ident, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(row_order), _bits(grouped))
+    want = polish.apply_pairs_ref(*args)
+    assert (grouped[el < 0] == 0).all()
+    rel = (grouped - want).abs() / want.abs().clamp_min(1e-12)
+    assert float(rel[el >= 0].max()) <= 1e-12
 
 
 @pytest.mark.parametrize("polish_mode", ["f32", "df32"])

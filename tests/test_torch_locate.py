@@ -561,3 +561,21 @@ def test_frozen_lattice_is_prepared_once(grid_shell):
     np.testing.assert_array_equal(a.centroids.numpy(), a.centroids_host)
     got = tloc.locate(pts[N_GRID // 10:][:64], nodes, 2, device="cpu")
     assert got.found.all()
+
+
+def test_polish_attaches_f64_lattice_to_the_cached_prep(grid_shell):
+    """One prep per mesh: a polish that comes after a plain locate adds
+    the f64 lattice to the cached prep, equal to the one a first call
+    with ``want64`` makes, and the f32 lattice is its rounding."""
+    mesh = grid_shell[0]
+    tloc._PREP_CACHE.clear()
+    first = tloc._mesh_prep(mesh.points, 2, "cpu", want64=True)
+    tloc._PREP_CACHE.clear()
+    a = tloc._mesh_prep(mesh.points, 2, "cpu")
+    assert a.nodes64 is None
+    b = tloc._mesh_prep(mesh.points, 2, "cpu", want64=True)
+    assert b is a and len(tloc._PREP_CACHE) == 1
+    assert torch.equal(a.nodes64, first.nodes64)
+    assert torch.equal(a.nodes64.float(), a.nodes)
+    assert tloc._mesh_prep(mesh.points, 2, "cpu") is a
+    assert a.nodes64 is not None
