@@ -10,8 +10,8 @@ each on stdout:
    versions, the kernel build time;
 2. K2 (nearest centroid) against its plain PyTorch twin on one 262,144-
    query chunk of the ``gll`` configuration;
-3. K1 (Newton rows) against its twin on 262,144 rows at order/dim 4/3,
-   2/3, 1/3 and 2/2;
+3. K1 (Newton rows) against its twin on 262,144 rows at every order/dim
+   the kernel is built for: 4/3, 2/3, 1/3, 2/2, 1/2 and 4/2;
 4. K4 (f64 polish) against its twin on 262,144 accepted K1 solves of
    phase 3 at the same orders and dims, and on known refs;
 5. K5 (pair apply) against its twin on 262,144 rows, 3 parameters,
@@ -57,10 +57,46 @@ each on stdout:
    against the plain twins (pair refs and all 3 columns), and K4 and K5
    against their twins on that chunk's own sparse rows.
 
+11. the Exodus transfer (``phase_exodus``): ``engine.exodus_2_exodus``
+   file to file (``scipy`` only) from an order-1 shell of 48 x 48 x 44 =
+   101,376 hexes onto the 97,336 nodes of a 45 x 45 x 45 shell inside it,
+   VP; first and warm, no missing point, the written values against the
+   plain path (rtol 1e-5) and the analytic field;
+12. Exodus -> GLL (``phase_exodus_gll``): a 40 x 40 x 36 = 57,600-hex
+   source written as an Exodus file and read back, onto the file path's
+   GLL target (9,925,250 slots, read as f32), VP, VS, RHO, through
+   ``engine.exodus_2_gll_arrays`` with a numpy sink (``"h5py": false``:
+   the HDF5 wrapper is not what runs here): first, three warm walls, the
+   stage seconds of one call under ``MMT_PROFILE=1``, the sink bit for
+   bit against the operator built in memory, the first chunk against the
+   plain path, and K1 at order 1 against its twin on that chunk's rows
+   and on 262,144 slots spread over the target (sparse ids over the
+   57,600 hexes);
+13. the layered path (``phase_layered``): ``engine.gll_2_gll_layered`` on
+   live mesh objects -- the ``gll`` source with 4 layers of 1,024
+   elements onto an order-4 target of 37 x 37 x 60 = 82,140 elements
+   (10,267,500 slots) whose 4 layer interfaces coincide with the
+   source's, 4 parameters, per-layer dedup -- warm-up and three timed
+   calls, every parameter against its analytic value (< 1e-6), each
+   layer's operator against one built directly on that layer's arrays,
+   once with ``MMT_DF32_POLISH=1`` (K1, K2, K4, K5; < 1e-8) and once
+   through ``gll_2_gll_layered_multi_two`` (snap, tolerance 1.05);
+14. the point queries (``phase_points``): ``engine.extract_regular_grid``
+   on the ``gll`` source for a 216^3 = 10,077,696-point lat/lon/depth
+   grid that overhangs the shell on every side, 3 parameters, sentinel:
+   zeros exactly on the rows outside, < 1e-6 inside, the retry's rows
+   and share of the wall; then ``bench.py``'s ``grid2d`` shape (a 2-D
+   order-4 24 x 24 warped box, 512 x 512 points) for K1 at 4/2.
+
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
-slice's run, as ``launches_file`` in the file path's df32 call and as
-``launches_big`` in the grid route's df32 run,
+slice's run, as ``launches_file`` in the file path's df32 call, as
+``launches_big`` in the grid route's df32 run, and as ``launches_exodus``,
+``launches_exodus_gll``, ``launches_layered`` (its df32 call),
+``launches_points`` and ``launches_grid2d`` in phases 11-14; K1 also with
+its order-1 times on the Exodus -> GLL path's first chunk
+(``*_order1_chunk``) and on rows spread over its source
+(``*_order1_sparse``),
 K5 also with ``max_rel_diff_file`` against its twin on that call's
 inputs, K4 with ``max_abs_diff_big`` and K5 with ``max_rel_diff_big``
 against their twins on the first chunk of the grid route's df32 run; the times of K1, K4 and K5 include their grouping pre-pass,
@@ -72,8 +108,9 @@ line, as it does without a CUDA device.
     python3 chip_smoke.py --profile
 
 runs phase 1 and then, instead of the checks, times the slice, df32
-slice, f64_polish slice, flagship, scan, file and ``gll_big`` slice runs
-warm and profiles each once with ``torch.profiler`` (see ``profile``).
+slice, f64_polish slice, flagship, scan, file, Exodus -> GLL, layered,
+regular-grid and ``gll_big`` slice runs warm and profiles each once with
+``torch.profiler`` (see ``profile``).
 """
 import argparse
 import dataclasses
@@ -85,6 +122,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -92,6 +130,7 @@ import torch
 from multimesh_tpu_torch import (TransferOperator, _build, engine, hashing,
                                  testing, utils_profile)
 from multimesh_tpu_torch.config import LocateConfig, Precision
+from multimesh_tpu_torch.io import exodus as eio
 from multimesh_tpu_torch.ops import dedup
 from multimesh_tpu_torch.search import locate as _locate
 from multimesh_tpu_torch.core import shape
@@ -117,6 +156,28 @@ FILE_PARAMS = ("VP", "VS", "RHO")
 # the gll_big source: 80 x 78 x 80 = 499,200 elements of order 4
 BIG_SHELL = dict(n_lat=80, n_lon=78, n_rad=80, order=4)
 N_BIG_KNN = 8_192  # rows of the grid_knn check (and of a rescue launch)
+# Exodus -> Exodus (bench.py's ``exodus`` shape): 101,376 hexes, 97,336 nodes
+EXO_SRC = dict(n_lat=48, n_lon=48, n_rad=44, order=1)
+EXO_TGT = dict(n_lat=45, n_lon=45, n_rad=45, order=1, r_inner=3.7e6,
+               r_outer=6.2e6, lat_extent=(0.58, 1.12),
+               lon_extent=(0.38, 1.32))
+# Exodus -> GLL (bench.py's ``exodus_gll`` source): 57,600 hexes
+E2G_SRC = dict(n_lat=40, n_lon=40, n_rad=36, order=1)
+EXO_CFG = LocateConfig(nelem_to_search=20, accept_tol=1.025,
+                       fallback_max=1.5)  # engine._exodus_operator's
+# the layered pair: 4 layers whose interfaces coincide (same radial
+# extent, both radial counts multiples of 4)
+LAYERED_SRC = dict(n_lat=16, n_lon=16, n_rad=16, order=4, n_layers=4)
+LAYERED_TGT = dict(n_lat=37, n_lon=37, n_rad=60, order=4, n_layers=4,
+                   lat_extent=(0.55, 1.15), lon_extent=(0.35, 1.35))
+LAYERED_PARAMS = ("VP", "VS", "RHO", "QMU")
+# the regular grid (lat deg, lon deg, depth m; 216^3 points) around the
+# gll source, which spans lat 21.2..61.4, lon 17.2..80.2, depth 0..2.891e6
+GRID_LAT, GRID_LON = (15.0, 68.0, 216), (10.0, 88.0, 216)
+GRID_DEPTH = (-1.0e5, 3.0e6, 216)
+# bench.py's ``grid2d`` shape
+GRID2D_SRC = dict(shape=(24, 24), order=4, warp=0.05)
+GRID2D_N = 512
 # published peaks of one H100 SXM (NVIDIA's data sheet; at 700 W): f32 and
 # f64 outside the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -319,6 +380,8 @@ def phase_newton(dev, gll_mesh, gll_pts):
         (testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=2), gll_pts),
         (testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=1), gll_pts),
         (testing.box_mesh(shape=(64, 64), order=2, warp=0.1), box_pts),
+        (testing.box_mesh(shape=(64, 64), order=1, warp=0.1), box_pts),
+        (testing.box_mesh(**GRID2D_SRC), box_pts),
     ]
     entry, solved = None, []
     for i, (mesh, pts) in enumerate(cases):
@@ -1345,6 +1408,468 @@ def phase_big(dev, smi, big, pts_d, truth):
     return d_launches, k4_diff, k5_rel
 
 
+def _median_spread(walls):
+    w = sorted(walls)
+    return w[len(w) // 2], w[-1] - w[0]
+
+
+def _rel_np(got, truth):
+    return float(np.max(np.abs(got - truth) / np.abs(truth)))
+
+
+def phase_exodus(dev, smi, tmpdir):
+    """Exodus -> Exodus, file to file (see the module docstring).  Returns
+    the launch counts of the first call."""
+    src, tgt = testing.shell_mesh(**EXO_SRC), testing.shell_mesh(**EXO_TGT)
+    f_a = os.path.join(tmpdir, "exo_a.e")
+    f_b0 = os.path.join(tmpdir, "exo_b_pristine.e")
+    f_b = os.path.join(tmpdir, "exo_b.e")
+    testing.write_exodus_fixture(f_a, src, parameters=("VP",))
+    testing.write_exodus_fixture(f_b0, tgt, parameters=("VP",),
+                                 field_kind="linear")
+
+    def run():
+        shutil.copyfile(f_b0, f_b)
+        return _host_s(lambda: engine.exodus_2_exodus(
+            f_a, f_b, parameters=["VP"], device=dev))[1]
+
+    clear_caches()
+    reset_launches()
+    wall_first = run()
+    launches = read_launches()
+    walls = [run() for _ in range(3)]
+    got = eio.Exodus(f_b).get_nodal_field("VP")
+    truth = testing.smooth_field(tgt.vertices)
+    rel = _rel_np(got, truth)
+    check(got.shape == (tgt.vertices.shape[0],) and np.isfinite(got).all(),
+          f"written VP {got.shape}")
+    check(launches["newton_rows"] > 0 and launches["nearest_centroid"] == 0,
+          f"the Exodus path's launches {launches}")
+
+    # the plain path on the arrays the files hold
+    exo_a, exo_b = eio.Exodus(f_a), eio.Exodus(f_b0)
+    check(exo_a.nelem == src.nelem > grid.APPROX_GRID_MIN_SOURCES,
+          f"{exo_a.nelem} hexes do not take the grid route")
+    conn = exo_a.canonical_connectivity()
+    p_op = TransferOperator.build(
+        exo_a.canonical_corner_nodes(), exo_b.points, order=1, cfg=EXO_CFG,
+        fallback="best", device=dev, plain=True)
+    p_vals = p_op.apply(exo_a.get_nodal_field("VP")[conn]).cpu().numpy()
+    p_rel = _rel_np(p_vals, truth)
+    vdiff = _rel_np(got, p_vals)
+    median, spread = _median_spread(walls)
+    emit({"phase": "exodus", "nvidia_smi": smi, "hexes": src.nelem,
+          "nodes": int(got.shape[0]), "params": 1, "wall_first_s": wall_first,
+          "walls_warm_s": walls, "wall_warm_median_s": median,
+          "wall_warm_spread_s": spread,
+          "mnodes_per_s_warm": got.shape[0] / median / 1e6,
+          "launches": launches, "num_missing": 0,
+          "num_missing_plain": p_op.num_missing,
+          "max_rel_err_vs_analytic": rel,
+          "plain_max_rel_err_vs_analytic": p_rel,
+          "plain_max_rel_diff": vdiff})
+    check(p_op.num_missing == 0, "the plain path left a node unassigned")
+    # a trilinear source: the error is its discretisation's, so it is held
+    # to the plain path's, and both to the reference's 5e-3
+    check(rel < 5e-3, f"Exodus max rel err {rel:.3g} >= 5e-3")
+    check(vdiff <= 1e-5, f"Exodus plain path values differ by {vdiff:.3g}")
+    check(abs(rel - p_rel) <= 1e-5, f"Exodus error {rel:.6g} against the "
+          f"plain path's {p_rel:.6g}")
+    return launches
+
+
+def phase_exodus_gll(dev, smi, tgt, tmpdir):
+    """Exodus -> GLL through the arrays core (see the module docstring).
+    Returns the launch counts of a warm call and K1's entry keys on the
+    source's sparse order-1 rows."""
+    src = testing.shell_mesh(**E2G_SRC)
+    params = list(FILE_PARAMS)
+    f_exo = os.path.join(tmpdir, "e2g_src.e")
+    testing.write_exodus_fixture(f_exo, src, parameters=FILE_PARAMS)
+    exo = eio.Exodus(f_exo)
+    check(exo.nelem == src.nelem > grid.APPROX_GRID_MIN_SOURCES,
+          f"{exo.nelem} hexes do not take the grid route")
+    corner_nodes = exo.canonical_corner_nodes()
+    conn = exo.canonical_connectivity()
+    fields = np.stack([exo.get_nodal_field(p)[conn] for p in params])
+    # what exodus_2_gll hands its core: the target coordinates as f32
+    coords = tgt.points.astype(np.float32)
+    n_slots = tgt.nelem * tgt.n_gll
+    sink = np.empty((tgt.nelem, len(params), tgt.n_gll), np.float32)
+
+    def open_sink(names):
+        check(names == params, f"sink opened for {names}")
+        sink.fill(np.nan)
+        return sink
+
+    def run():
+        return _host_s(lambda: engine.exodus_2_gll_arrays(
+            corner_nodes, fields, params, coords, open_sink,
+            device=dev))[1]
+
+    clear_caches()
+    wall_first = run()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        reset_launches()
+        walls.append(run())
+        launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["newton_rows"] > 0 and launches["nearest_centroid"] == 0,
+          f"the Exodus -> GLL path's launches {launches}")
+    check(bool(np.isfinite(sink).all()), "the sink holds non-finite values")
+    truth = np.stack(list(testing.salvus_fixture_fields(
+        tgt, FILE_PARAMS)[0].values())[:3], axis=1)
+    rels = [float(x) for x in np.max(
+        np.abs(sink - truth) / np.abs(truth), axis=(0, 2))]
+
+    # the operator built and applied in memory: bit for bit the sink
+    flat = torch.as_tensor(coords.reshape(-1, 3), device=dev)
+    op = TransferOperator.build(corner_nodes, flat, order=1, cfg=EXO_CFG,
+                                fallback="best", device=dev)
+    f_dev = torch.as_tensor(fields, device=dev)
+    mem = op.apply(f_dev).view(tgt.nelem, tgt.n_gll, len(params)).transpose(
+        1, 2).float().cpu().numpy()
+    check(op.num_missing == 0, f"{op.num_missing} slots missing")
+    check(np.array_equal(mem, sink), "the sink differs from the in-memory "
+          "operator's values")
+    n_retry = op.n_retry
+    del mem
+
+    # the first chunk through the plain path: values, not element ids (a
+    # slot on a face of the order-1 source is accepted by two hexes)
+    p_op = TransferOperator.build(corner_nodes, flat[:ROWS], order=1,
+                                  cfg=EXO_CFG, fallback="best", device=dev,
+                                  plain=True)
+    v, pv = op.apply(f_dev)[:ROWS], p_op.apply(f_dev)
+    agree = float((op.elements[:ROWS] == p_op.elements).double().mean())
+    vdiff = float(((v - pv).abs() / pv.abs()).max())
+
+    # K1 at order 1 on round 1's rows, on the corner lattice: the path's
+    # own first chunk (slots in element order, so few hexes occur among
+    # them) and ROWS slots spread over the whole target (sparse ids over
+    # the 57,600 hexes)
+    prep = _locate._mesh_prep(corner_nodes, 1, dev)
+    index = grid.get_grid_index(prep.centroids_host, _locate.ROUND1_MEMBERS,
+                                dev)
+    k1, k1_checks = {}, []
+    for tag, q in (("chunk", flat[:ROWS]),
+                   ("sparse", flat[::flat.shape[0] // ROWS][:ROWS])):
+        q = q.double().contiguous()
+        cand = grid.nearest_member(index, q, n_probe=_locate.ROUND1_PROBES)
+        args = (q, cand.contiguous(), prep.ctr, prep.inv_scale, prep.nodes,
+                1, 3, ITERS, LocateConfig().newton_clamp)
+        k_ref, k_res = newton.newton_rows(*args)
+        t_ref, t_res = newton.newton_refs_rows_ref(*args)
+        torch.cuda.synchronize()
+        ka = (k_res < CONV_TOL) & (k_ref.abs().amax(-1) < EXO_CFG.accept_tol)
+        ta = (t_res < CONV_TOL) & (t_ref.abs().amax(-1) < EXO_CFG.accept_tol)
+        acc_agree = float((ka == ta).double().mean())
+        k1_err = float((k_ref - t_ref)[ka & ta].abs().max())
+        times = _grouped_times(newton.newton_rows, newton._newton_kernel,
+                               args, args[1], src.nelem)
+        plain_ms = cuda_ms(lambda: newton.newton_refs_rows_ref(*args), 3)
+        bound_ms, bound_by = newton_bound(args, k_ref, k_res)
+        k1.update({f"ms_order1_{tag}": times["ms"],
+                   f"group_ms_order1_{tag}": times["group_ms"],
+                   f"plain_ms_order1_{tag}": plain_ms,
+                   f"bound_ms_order1_{tag}": bound_ms,
+                   f"max_abs_err_order1_{tag}": k1_err})
+        emit({"phase": "exodus_gll K1", "order_dim": "1/3", "rows_of": tag,
+              "rows": ROWS, "elements": src.nelem,
+              "distinct_elements": int(torch.unique(cand).numel()),
+              "accepted": float(ka.double().mean()),
+              "accept_agree": acc_agree, "max_abs_err_accepted": k1_err,
+              **times, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "bound_share": bound_ms / times["ms"]})
+        k1_checks.append((tag, acc_agree, k1_err))
+    del op, p_op, v, pv, f_dev, flat, q, cand, args, k_ref, t_ref
+
+    # the stage seconds of one warm call
+    os.environ["MMT_PROFILE"] = "1"
+    try:
+        utils_profile.reset_stages()
+        wall_prof = run()
+        stages = utils_profile.stage_totals()
+    finally:
+        del os.environ["MMT_PROFILE"]
+    check({"operator.build", "e2g.apply", "e2g.stream_write"} <= set(stages),
+          f"stages {sorted(stages)}")
+    median, spread = _median_spread(walls)
+    emit({"phase": "exodus_gll", "h5py": False, "nvidia_smi": smi,
+          "hexes": src.nelem, "n_slots": n_slots, "params": len(params),
+          "wall_first_s": wall_first, "walls_warm_s": walls,
+          "wall_warm_median_s": median, "wall_warm_spread_s": spread,
+          "mslots_per_s_warm": n_slots / median / 1e6,
+          "launches": launches, "num_missing": 0, "n_retry": n_retry,
+          "peak_mem_gb": peak_gb, "max_rel_err_vs_analytic": rels,
+          "plain_elements_agree": agree, "plain_max_rel_diff": vdiff,
+          "stages_s": stages, "wall_profiled_s": wall_prof})
+    check(max(rels) < 5e-3, f"Exodus -> GLL max rel errs {rels} >= 5e-3")
+    check(vdiff <= 1e-5, f"Exodus -> GLL plain path values differ by "
+          f"{vdiff:.3g}")
+    for tag, acc_agree, k1_err in k1_checks:
+        check(acc_agree >= 0.9999, f"K1 1/3 {tag} rows: acceptance "
+              f"agreement {acc_agree:.6f}")
+        check(k1_err <= 1e-5, f"K1 1/3 {tag} rows: accepted refs differ by "
+              f"{k1_err:.3g}")
+    return launches, k1
+
+
+def _live_mesh(mesh, params, field_kind):
+    """make() -> a live mesh object, as a user of salvus would hold it:
+    element-nodal points, a dict of element-nodal fields (each parameter a
+    scaled copy of the analytic field) and the elemental ``layer`` and
+    ``fluid``.  Every object gets a dict of its own over the same arrays:
+    the engine attaches new arrays, it does not write into these."""
+    nodal, elemental = testing.salvus_fixture_fields(mesh, params, None,
+                                                     field_kind)
+    return lambda: types.SimpleNamespace(points=mesh.points,
+                                         element_nodal_fields=dict(nodal),
+                                         elemental_fields=elemental)
+
+
+def phase_layered(dev, smi):
+    """The layered path on live mesh objects (see the module docstring).
+    Returns the launch counts of its df32 call."""
+    src, tgt = (testing.shell_mesh(**LAYERED_SRC),
+                testing.shell_mesh(**LAYERED_TGT))
+    params = list(LAYERED_PARAMS)
+    n_slots = tgt.nelem * tgt.n_gll
+    old = _live_mesh(src, LAYERED_PARAMS, "smooth")()
+    fresh_target = _live_mesh(tgt, LAYERED_PARAMS, "linear")
+    base = testing.smooth_field(tgt.points)
+    truth = [base * (1 + 0.1 * i) for i in range(len(params))]
+    del base
+
+    def run(entry=engine.gll_2_gll_layered, **kw):
+        """One call onto a fresh target (the linear field: a node left
+        unwritten cannot pass): (wall seconds, max rel err by parameter)."""
+        new = fresh_target()
+        wall = _host_s(lambda: entry(old, new, layers="all",
+                                     parameters=params, device=dev,
+                                     **kw))[1]
+        return wall, [_rel_np(new.element_nodal_fields[p], t)
+                      for p, t in zip(params, truth)]
+
+    clear_caches()
+    wall_first, _ = run()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        reset_launches()
+        wall, rels = run()
+        walls.append(wall)
+        launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["newton_rows"] > 0 and launches["nearest_centroid"] > 0,
+          f"a kernel of the layered path was not launched: {launches}")
+
+    # the stage seconds of one warm call (its syncs serialise the stages)
+    os.environ["MMT_PROFILE"] = "1"
+    try:
+        utils_profile.reset_stages()
+        wall_prof, _ = run()
+        stages = utils_profile.stage_totals()
+    finally:
+        del os.environ["MMT_PROFILE"]
+    check({"layered.masks_dedup", "layered.build", "operator.build",
+           "layered.apply_write"} <= set(stages), f"stages {sorted(stages)}")
+
+    # each layer's operator against one built directly on its arrays
+    ops, src_masks, tgt_masks = engine._layered_operators(
+        engine._as_salvus(old), engine._as_salvus(fresh_target()), "all",
+        20, None,
+        accept_tol=1.04, fallback="fixed_ref", use_aabb=True, device=dev)
+    layers = {}
+    for layer, op in ops.items():
+        uniq, recon = dedup.unique_points(tgt.points[tgt_masks[layer]])
+        direct = TransferOperator.build(
+            src.points[src_masks[layer]], uniq, order=src.order,
+            cfg=engine._locate_cfg(20, accept_tol=1.04), device=dev,
+            **FLAGSHIP_KW)
+        same = (torch.equal(op.elements, direct.elements)
+                and torch.equal(op.refs, direct.refs)
+                and np.array_equal(op.recon.cpu().numpy(), recon))
+        layers[layer] = {"source_elements": int(src_masks[layer].sum()),
+                         "slots": int(tgt_masks[layer].sum()) * tgt.n_gll,
+                         "unique": int(uniq.shape[0]),
+                         "n_retry": op.n_retry,
+                         "num_missing": op.num_missing,
+                         "equal_direct": same}
+        check(same, f"layer {layer}'s operator differs from the one built "
+              "directly on its arrays")
+    del ops, direct
+
+    # multi_two's semantics (snap, tolerance 1.05, 30 candidates), once
+    wall_two, rels_two = run(engine.gll_2_gll_layered_multi_two)
+
+    # the polished path
+    os.environ["MMT_DF32_POLISH"] = "1"
+    try:
+        run()  # the prep with the f64 lattice first
+        reset_launches()
+        wall_df32, rels_df32 = run()
+        launches_df32 = read_launches()
+    finally:
+        del os.environ["MMT_DF32_POLISH"]
+    median, spread = _median_spread(walls)
+    emit({"phase": "layered", "nvidia_smi": smi, "n_slots": n_slots,
+          "elements": src.nelem, "target_elements": tgt.nelem,
+          "n_layers": len(layers), "params": len(params),
+          "wall_first_s": wall_first, "walls_warm_s": walls,
+          "wall_warm_median_s": median, "wall_warm_spread_s": spread,
+          "mslots_per_s_warm": n_slots / median / 1e6,
+          "launches": launches, "max_rel_err": rels, "layers": layers,
+          "peak_mem_gb": peak_gb, "stages_s": stages,
+          "wall_profiled_s": wall_prof,
+          "multi_two": {"wall_s": wall_two, "max_rel_err": rels_two},
+          "df32": {"wall_s": wall_df32, "max_rel_err": rels_df32,
+                   "launches": launches_df32}})
+    check(max(rels) < 1e-6, f"layered max rel errs {rels} >= 1e-6")
+    check(max(rels_two) < 1e-6, f"multi_two max rel errs {rels_two} >= 1e-6")
+    check(max(rels_df32) < 1e-8, f"layered df32 max rel errs {rels_df32} "
+          ">= 1e-8")
+    check(all(launches_df32[k] > 0 for k in (
+        "newton_rows", "nearest_centroid", "polish_pairs", "apply_pairs")),
+        f"a kernel of the layered df32 path was not launched: "
+        f"{launches_df32}")
+    return launches_df32
+
+
+def phase_points(dev, smi, src):
+    """The point queries (see the module docstring).  Returns the launch
+    counts of the regular-grid call and of the ``grid2d`` one."""
+    params = list(FILE_PARAMS)
+    mesh = _live_mesh(src, FILE_PARAMS, "smooth")()
+    extents = dict(lat_extent=GRID_LAT, lon_extent=GRID_LON,
+                   depth_extent=GRID_DEPTH)
+
+    def run():
+        return _host_s(lambda: engine.extract_regular_grid(
+            mesh, params, device=dev, **extents))
+
+    clear_caches()
+    _, wall_first = run()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ds, wall = run()
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["newton_rows"] > 0 and launches["nearest_centroid"] > 0,
+          f"a kernel of the regular-grid path was not launched: {launches}")
+
+    # once more under MMT_PROFILE=1 for the stage seconds, with the scan
+    # retry timed (device-complete on both sides)
+    retry = {"s": 0.0, "rows": 0}
+    rescan = _locate._rescan
+
+    def timed_rescan(rows, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rescan(rows, *a, **k)
+        torch.cuda.synchronize()
+        retry["s"] += time.perf_counter() - t0
+        retry["rows"] += int(rows.shape[0])
+
+    _locate._rescan = timed_rescan
+    os.environ["MMT_PROFILE"] = "1"
+    try:
+        utils_profile.reset_stages()
+        _, wall_timed = run()
+        stages = utils_profile.stage_totals()
+    finally:
+        del os.environ["MMT_PROFILE"]
+        _locate._rescan = rescan
+    check({"operator.build", "points.apply"} <= set(stages),
+          f"stages {sorted(stages)}")
+
+    # where each grid point lies: the source spans colatitude 0.5..1.2,
+    # longitude 0.3..1.4 rad and radius 3.48e6..6.371e6 m in 16 elements
+    # each way; a point within 5% of an element's width of the hull may
+    # or may not be accepted (accept_tol 1.05), and is held to neither
+    shape3 = (GRID_DEPTH[2], GRID_LAT[2], GRID_LON[2])
+    dd, la, lo = np.meshgrid(ds.depth, ds.lat, ds.lon, indexing="ij")
+    r = 6.371e6 - dd
+    colat, lon = np.deg2rad(90.0 - la), np.deg2rad(lo)
+    inside = np.ones(shape3, bool)
+    outside = np.zeros(shape3, bool)
+    for x, (a, b) in ((r, (3.48e6, 6.371e6)), (colat, (0.5, 1.2)),
+                      (lon, (0.3, 1.4))):
+        band = 0.05 * (b - a) / 16
+        inside &= (x >= a) & (x <= b)
+        outside |= (x < a - band) | (x > b + band)
+    truth = testing.smooth_field(np.stack(
+        [r * np.sin(colat) * np.cos(lon), r * np.sin(colat) * np.sin(lon),
+         r * np.cos(colat)], -1))
+    del dd, la, lo, r, colat, lon
+    rels, zeros, nonzero = [], True, True
+    for i, p in enumerate(params):
+        check(ds[p].shape == shape3, f"{p} {ds[p].shape}")
+        zeros &= bool((ds[p][outside] == 0).all())
+        nonzero &= bool((ds[p][inside] != 0).all())
+        rels.append(_rel_np(ds[p][inside], truth[inside] * (1 + 0.1 * i)))
+    n_points = int(np.prod(shape3))
+    emit({"phase": "points", "nvidia_smi": smi, "n_points": n_points,
+          "elements": src.nelem, "params": len(params),
+          "share_outside": float(outside.mean()),
+          "share_inside": float(inside.mean()),
+          "wall_first_s": wall_first, "wall_s": wall,
+          "mpts_per_s": n_points / wall / 1e6, "launches": launches,
+          "n_retry": retry["rows"], "retry_s": retry["s"],
+          "wall_retry_timed_s": wall_timed,
+          "retry_share_of_wall": retry["s"] / wall_timed,
+          "stages_s": stages,
+          "outside_rows_zero": zeros, "inside_rows_nonzero": nonzero,
+          "max_rel_err_inside": rels, "peak_mem_gb": peak_gb})
+    check(zeros, "a grid point outside the shell is not zero")
+    check(nonzero, "a grid point inside the shell was not located")
+    check(max(rels) < 1e-6, f"regular grid max rel errs {rels} >= 1e-6")
+    del ds, truth, inside, outside
+
+    # bench.py's grid2d shape: K1 at 4/2 on the main path
+    src2 = testing.box_mesh(**GRID2D_SRC)
+    gx, gy = np.meshgrid(np.linspace(0.02, 0.98, GRID2D_N),
+                         np.linspace(0.02, 0.98, GRID2D_N))
+    pts = np.stack([gx.ravel(), gy.ravel()], -1)
+    field = torch.as_tensor(testing.element_nodal_field(src2, "smooth"),
+                            device=dev)
+
+    def run2d(plain=False):
+        def build_apply():
+            op = TransferOperator.build(
+                src2.points, pts, order=src2.order, cfg=SLICE_CFG,
+                fallback="sentinel", device=dev, plain=plain)
+            return op, op.apply(field)
+
+        (op, vals), wall = _host_s(build_apply)
+        return op, vals, wall
+
+    run2d()
+    reset_launches()
+    op, vals, wall2d = run2d()
+    launches2d = read_launches()
+    p_op, p_vals, _ = run2d(plain=True)
+    truth2 = torch.as_tensor(testing.smooth_field(pts), device=dev)
+    rel2 = max_rel(vals, truth2)
+    same = op.elements == p_op.elements
+    agree = float(same.double().mean())
+    vdiff = float(((vals - p_vals).abs() / p_vals.abs()).max())
+    emit({"phase": "grid2d", "n_points": int(pts.shape[0]),
+          "elements": src2.nelem, "order_dim": "4/2", "wall_s": wall2d,
+          "mpts_per_s": pts.shape[0] / wall2d / 1e6,
+          "launches": launches2d, "num_missing": op.num_missing,
+          "max_rel_err": rel2, "plain_elements_agree": agree,
+          "plain_max_rel_diff": vdiff})
+    check(launches2d["newton_rows"] > 0, f"K1 was not launched at 4/2: "
+          f"{launches2d}")
+    check(op.num_missing == 0, f"grid2d left {op.num_missing} points")
+    check(rel2 < 1e-6, f"grid2d max rel err {rel2:.3g} >= 1e-6")
+    check(vdiff <= 1e-5, f"grid2d plain path values differ by {vdiff:.3g}")
+    return launches, launches2d
+
+
 def profile(dev, src, pts_d, fields, targets, case, big):
     """``--profile``: per run of the time breakdown in PERF.md (the
     slices, the flagship options, the scan, the file path's ``case.run``
@@ -1371,6 +1896,28 @@ def profile(dev, src, pts_d, fields, targets, case, big):
         "scan, 1M targets": lambda: run_scan(src, tgt_d, dev),
         "file": case.run,
     }
+    # phases 12-14: Exodus -> GLL through its arrays core, the layered
+    # path and the regular grid, as the smoke phases drive them
+    e2g_src = testing.shell_mesh(**E2G_SRC)
+    e2g_corners = e2g_src.points  # order 1: the lattice is the corners
+    e2g_fields = np.stack([testing.element_nodal_field(e2g_src, "smooth")
+                           * (1 + 0.1 * i) for i in range(3)])
+    e2g_coords = case.tgt.points.astype(np.float32)
+    e2g_sink = np.empty((case.tgt.nelem, 3, case.tgt.n_gll), np.float32)
+    runs["exodus_gll"] = lambda: engine.exodus_2_gll_arrays(
+        e2g_corners, e2g_fields, list(FILE_PARAMS), e2g_coords,
+        lambda names: e2g_sink, device=dev)
+    lay_old = _live_mesh(testing.shell_mesh(**LAYERED_SRC), LAYERED_PARAMS,
+                         "smooth")()
+    lay_new = _live_mesh(testing.shell_mesh(**LAYERED_TGT), LAYERED_PARAMS,
+                         "linear")
+    runs["layered"] = lambda: engine.gll_2_gll_layered(
+        lay_old, lay_new(), layers="all", parameters=list(LAYERED_PARAMS),
+        device=dev)
+    grid_mesh = _live_mesh(src, FILE_PARAMS, "smooth")()
+    runs["regular grid"] = lambda: engine.extract_regular_grid(
+        grid_mesh, list(FILE_PARAMS), lat_extent=GRID_LAT,
+        lon_extent=GRID_LON, depth_extent=GRID_DEPTH, device=dev)
     big_src, big_fields, _ = big
     big_fields = torch.as_tensor(big_fields, device=dev)
     runs["gll_big slice"] = lambda: run_transfer(
@@ -1439,8 +1986,20 @@ def main():
     order1 = phase_flagship(dev, src, pts, fields)
     del pts, pts_d, fields
     with tempfile.TemporaryDirectory() as tmpdir:
+        # one GLL target for the file path and for Exodus -> GLL
+        tgt = file_target()
         launches_file, k5["max_rel_diff_file"] = phase_file(
-            FileCase(src, file_target(), tmpdir, dev), smi)
+            FileCase(src, tgt, tmpdir, dev), smi)
+        clear_caches()
+        launches_e2g, k1_sparse = phase_exodus_gll(dev, smi, tgt, tmpdir)
+        k1.update(k1_sparse)
+        del tgt
+        clear_caches()
+        launches_exo = phase_exodus(dev, smi, tmpdir)
+    clear_caches()
+    launches_layered = phase_layered(dev, smi)
+    clear_caches()
+    launches_points, launches_2d = phase_points(dev, smi, src)
     # the small case's tensors and caches go before the 499,200-element one
     del src, centroids
     clear_caches()
@@ -1451,13 +2010,19 @@ def main():
         torch.as_tensor(testing.shell_targets(N_TARGETS, seed=0), device=dev),
         truth)
 
-    # launches of the df32 slice's run, of the file path's df32 call and of
-    # the grid route's df32 run; K1's order-1 ones of the scan's
+    # launches of the df32 slice's run, of the file path's df32 call, of
+    # the grid route's df32 run and of the pipelines' phases (the layered
+    # one's df32 call); K1's order-1 ones of the scan's
     for entry, name in ((k1, "newton_rows"), (k2, "nearest_centroid"),
                         (k4, "polish_pairs"), (k5, "apply_pairs")):
         entry["launches"] = launches[name]
         entry["launches_file"] = launches_file[name]
         entry["launches_big"] = launches_big[name]
+        entry["launches_exodus"] = launches_exo[name]
+        entry["launches_exodus_gll"] = launches_e2g[name]
+        entry["launches_layered"] = launches_layered[name]
+        entry["launches_points"] = launches_points[name]
+        entry["launches_grid2d"] = launches_2d[name]
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
     k1["launches_order1"] = order1
     print(smi, flush=True)

@@ -9,6 +9,10 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+# Geocentric sphere radius of the lat/lon/depth conversions, in metres
+# (reference multi_mesh/utils.py:534).
+R_EARTH_M = 6_371_000.0
+
 # Default trilinear-prefilter width: the prefilter ranks candidates with a
 # cheap order-1 Newton and keeps the best PREFILTER_M for the full-order
 # solve (shared by every engine path; retune it here, not at call sites).
@@ -91,3 +95,9 @@ DEFAULT_LOCATE = LocateConfig()
 # point cannot be located at all but a value is still required
 # (reference interpolator.py:1468-1471).
 FALLBACK_REF_COORD = (0.645, -0.5, 0.22)
+
+# Parameter-set presets (reference multi_mesh/utils.py:171-188).
+PARAM_PRESETS = {
+    "TTI": ["VPV", "VPH", "VSV", "VSH", "RHO", "ETA", "QKAPPA", "QMU"],
+    "ISO": ["QKAPPA", "QMU", "RHO", "VP", "VS"],
+}

@@ -1,10 +1,4 @@
-"""Mesh file I/O (host side).  Imports ``h5py``: the package root does
-not import this subpackage, so only the file entry points need it."""
-from .salvus import (  # noqa: F401
-    SalvusMesh,
-    format_dim_label,
-    load_hdf5_params,
-    parse_dim_label,
-    recreate_dataset,
-    write_salvus_mesh,
-)
+"""Mesh file I/O (host side): ``salvus`` (HDF5, imports ``h5py``) and
+``exodus`` (NetCDF-3 through ``scipy``).  Import the submodule you need:
+neither the package root nor this subpackage imports them, so only the
+HDF5 entry points need ``h5py``."""

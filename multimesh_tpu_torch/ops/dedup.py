@@ -9,7 +9,7 @@ copy of the unique points is a ``torch.Tensor``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +109,16 @@ def unique_points_device(
         dev = torch.as_tensor(uniq, device=device)
         _UNIQ_DEV_CACHE[key] = dev
     return dev, recon
+
+
+def unique_points_per_layer(
+    points: np.ndarray, masks: Dict[str, np.ndarray]
+) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """Per-layer dedup: layer -> (unique points, reconstruction indices).
+
+    ``points`` [E, n, d]; ``masks`` layer -> boolean [E].  Mirrors the
+    mesh path of the reference's get_unique_points (utils.py:503-515).
+    """
+    return {
+        layer: unique_points(points[mask]) for layer, mask in masks.items()
+    }

@@ -94,19 +94,27 @@ class TransferOperator:
             w = torch.where(self.found[:, None], w, 0.0)
         return w
 
+    @weights.setter
+    def weights(self, value):
+        """Explicit [N, (p+1)^d] weights (a dense cache's coefficients):
+        ``apply`` then gathers with them and ignores the refs."""
+        self._weights = torch.as_tensor(value, device=self.device)
+
     @classmethod
     def build(cls, source_points, target_points, order: int,
               cfg: LocateConfig = DEFAULT_LOCATE, *,
               fallback: str = "sentinel", use_aabb: bool = False,
-              prefilter_m: int = 0, recon=None,
-              device="cuda", plain: bool = False) -> "TransferOperator":
+              prefilter_m: int = 0, centroids=None, candidates=None,
+              recon=None, device="cuda",
+              plain: bool = False) -> "TransferOperator":
         """Locate ``target_points`` [N, d] in the source mesh
         ``source_points`` [E, (p+1)^d, d] on ``device`` (see
-        ``search.locate.locate``; ``plain`` runs the kernels' plain
-        twins)."""
+        ``search.locate.locate``, also for ``centroids`` and
+        ``candidates``; ``plain`` runs the kernels' plain twins)."""
         with stage_timer("operator.build") as t:
             res = _locate(target_points, source_points, order, cfg,
                           fallback=fallback, use_aabb=use_aabb,
+                          centroids=centroids, candidates=candidates,
                           prefilter_m=prefilter_m, want_weights=False,
                           device=device, plain=plain)
             t.sync(res.elements)

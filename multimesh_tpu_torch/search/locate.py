@@ -44,6 +44,14 @@ best-so-far (reference multi_mesh/components/interpolator.py:1147-1255);
 Sources of at most 64 elements take exact top-k candidates with
 K = min(8, E) columns through the same rounds instead.
 
+``candidates`` [N, K] (ids into ``elem_nodes``, e.g. from a per-layer
+search of the caller's) replace the internal search: on the ladder they
+are round 1's column and the columns of rounds 2-3, and the scan retry
+scans them again (round 4 still searches by centroid with the full
+budget); on the scan they are the list to scan.  ``centroids`` [E, d]
+replace the mesh's own node means in every search and as the grid
+index's key, never in the geometry (AABBs, unit frames).
+
 Outside the port (raises ``NotImplementedError``): ``Precision.F64``.
 """
 from __future__ import annotations
@@ -466,24 +474,29 @@ def _empty(d, device):
 
 
 def _rescan(rows, points, out, prep, evaluate, cfg, fallback, chunk,
-            k_full):
+            k_full, candidates=None):
     """Scan rows ``rows`` again with fresh candidates (the full ``k_full``
-    list of ``grid.knn_any``), chunked, and write their (elements, refs,
-    found, accepted) into ``out`` in place."""
+    list of ``grid.knn_any``, or the caller's ``candidates`` rows),
+    chunked, and write their (elements, refs, found, accepted) into
+    ``out`` in place."""
     for rs in range(0, int(rows.shape[0]), chunk):
         r = rows[rs:rs + chunk]
         pts_r = points[r]
-        cand_r = _grid.knn_any(prep.centroids, pts_r, k_full,
-                               sources_host=prep.centroids_host)[1]
+        if candidates is not None:
+            cand_r = candidates[r]
+        else:
+            cand_r = _grid.knn_any(prep.centroids, pts_r, k_full,
+                                   sources_host=prep.centroids_host)[1]
         for dst, src in zip(out, _scan_candidates(pts_r, cand_r, evaluate,
                                                   cfg, fallback, prep)):
             dst[r] = src
 
 
 def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
-                   plain):
+                   plain, candidates=None):
     """The ladder route: chunks, then the scan retry.  Returns (elements,
-    refs, found, accepted, n_retry)."""
+    refs, found, accepted, n_retry).  Given ``candidates`` [N, K] serve
+    rounds 1-3 and the retry; round 4 keeps the route's own search."""
     N, d = points.shape
     device = points.device
     E = prep.centroids.shape[0]
@@ -501,11 +514,13 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
             return _grid.nearest_member(index, q,
                                         n_probe=ROUND1_PROBES)[:, None]
 
+        def round4(q):
+            return _grid.probe_topk(index, q, cfg.nelem_to_search,
+                                    max(16, 2048 // m))
+
         rescue_by = _Rescue(
             lambda q: _grid.probe_topk(index, q, kk, max(2, 256 // m)),
-            lambda q: _grid.probe_topk(index, q, cfg.nelem_to_search,
-                                       max(16, 2048 // m)),
-            div2=32, div3=32, div4=32)
+            round4, div2=32, div3=32, div4=32)
     else:
         def round4(q):
             return _knn.knn(prep.centroids, q, k_full)[1]
@@ -527,12 +542,19 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
                 return _knn.knn(prep.centroids, q, min(k_full, 8))[1]
 
             rescue_by = _Rescue(None, round4, div2=4, div3=8, div4=128)
+    if candidates is not None:
+        # the caller's columns take rounds 1-3 in the bucket sizes of the
+        # JAX package's K > 1 branch (C/4, C/8); round 4 is the route's
+        rescue_by = _Rescue(None, round4, div2=4, div3=8,
+                            div4=rescue_by.div4)
 
     outs = []
     for s in range(0, N, chunk):
         pts_c = points[s:s + chunk]
         C = 1 << max(0, pts_c.shape[0] - 1).bit_length()
-        outs.append(_ladder_chunk(pts_c, round1(pts_c), evaluate, cfg,
+        cand_c = (round1(pts_c) if candidates is None
+                  else candidates[s:s + chunk])
+        outs.append(_ladder_chunk(pts_c, cand_c, evaluate, cfg,
                                   fallback, C, rescue_by))
     if not outs:
         return (*_empty(d, device), 0)
@@ -557,24 +579,29 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
     # ladder degrades to the scan's semantics, never to a silent
     # fallback on an interior point.
     out = (elements, refs, found, accepted)
-    _rescan(retry, points, out, prep, evaluate, cfg, fallback, chunk, k_full)
+    _rescan(retry, points, out, prep, evaluate, cfg, fallback, chunk, k_full,
+            candidates)
     return (*out, int(retry.shape[0]))
 
 
 def _locate_scan(points, prep, evaluate, solve1, cfg, fallback, chunk,
-                 k_full, prefilter_m, prefilter):
-    """The scan route: exact candidates, the optional trilinear
-    prefilter, the scan, and the full-list rescue of rows the prefiltered
-    list did not accept.  Returns (elements, refs, found, accepted)."""
+                 k_full, prefilter_m, prefilter, candidates=None):
+    """The scan route: exact candidates (or the caller's), the optional
+    trilinear prefilter, the scan, and the full-list rescue of rows the
+    prefiltered list did not accept.  Returns (elements, refs, found,
+    accepted)."""
     N, d = points.shape
     outs = []
     for s in range(0, N, chunk):
         pts_c = points[s:s + chunk]
-        cand = _grid.knn_any(prep.centroids, pts_c, k_full,
-                             sources_host=prep.centroids_host)[1]
+        if candidates is not None:
+            cand = candidates[s:s + chunk]
+        else:
+            cand = _grid.knn_any(prep.centroids, pts_c, k_full,
+                                 sources_host=prep.centroids_host)[1]
         if prefilter:
             # only the nearest prefilter_pool candidates enter the ranking
-            pool = min(max(prefilter_m, cfg.prefilter_pool), k_full)
+            pool = min(max(prefilter_m, cfg.prefilter_pool), cand.shape[1])
             cand = _prefilter_rank(pts_c, cand[:, :pool], solve1,
                                    prefilter_m)
         outs.append(_scan_candidates(pts_c, cand, evaluate, cfg, fallback,
@@ -586,7 +613,7 @@ def _locate_scan(points, prep, evaluate, solve1, cfg, fallback, chunk,
         # the trilinear proxy can mis-rank candidates of strongly curved
         # elements: rows it left unaccepted take the full candidate list
         _rescan(torch.nonzero(~out[3]).squeeze(1), points, out, prep,
-                evaluate, cfg, fallback, chunk, k_full)
+                evaluate, cfg, fallback, chunk, k_full, candidates)
     return out
 
 
@@ -636,9 +663,9 @@ def _df32_polish(points, elements, refs, accepted, prep, order, cfg, chunk,
 
 def locate(points, elem_nodes, order: int,
            cfg: LocateConfig = DEFAULT_LOCATE, *, fallback: str = "sentinel",
-           use_aabb: bool = False, prefilter_m: int = 0,
-           strategy: str = "auto", chunk: int = 262_144,
-           want_weights: bool = True, device="cuda",
+           use_aabb: bool = False, centroids=None, candidates=None,
+           prefilter_m: int = 0, strategy: str = "auto",
+           chunk: int = 262_144, want_weights: bool = True, device="cuda",
            plain: bool = False) -> LocateResult:
     """Locate each query point in the source mesh.
 
@@ -646,6 +673,9 @@ def locate(points, elem_nodes, order: int,
     elem_nodes [E, (p+1)^d, d] (numpy or tensor, any E; prepared in f64,
     see ``_mesh_prep``; freeze a large lattice with
     ``setflags(write=False)`` and it is hashed once, not on every call).
+    ``candidates`` [N, K] int (ids into ``elem_nodes``) skip the internal
+    candidate search, and ``centroids`` [E, d] stand in for the elements'
+    node means wherever candidates are searched (module docstring).
     ``fallback`` in {"sentinel", "snap",
     "best", "fixed_ref"}; ``strategy`` in {"auto", "ladder", "scan"}
     ("auto" is the ladder); ``prefilter_m`` > 0 ranks the scan's
@@ -675,6 +705,17 @@ def locate(points, elem_nodes, order: int,
     points = torch.as_tensor(points, dtype=torch.float64, device=device)
     N = points.shape[0]
     prep = _mesh_prep(elem_nodes, order, device, want64=polish)
+    if centroids is not None:
+        # a view of the cached prep with the caller's search centroids;
+        # frozen, so the grid index keyed on them is hashed once
+        cent = np.array(centroids, dtype=np.float64, order="C")
+        cent_dev = torch.as_tensor(cent, device=device)
+        cent.setflags(write=False)
+        prep = dataclasses.replace(prep, centroids=cent_dev,
+                                   centroids_host=cent)
+    if candidates is not None:
+        candidates = torch.as_tensor(candidates,
+                                     device=device).to(torch.int32)
     solve = _row_solver(prep, prep.nodes, order, d,
                         cfg.newton_iters + cfg.polish_iters,
                         cfg.newton_clamp, plain)
@@ -684,14 +725,16 @@ def locate(points, elem_nodes, order: int,
     n_retry = 0
     if ladder:
         elements, refs, found, accepted, n_retry = _locate_ladder(
-            points, prep, evaluate, cfg, fallback, chunk, k_full, plain)
+            points, prep, evaluate, cfg, fallback, chunk, k_full, plain,
+            candidates)
     else:
-        prefilter = 0 < prefilter_m < k_full and order > 1
+        k_avail = k_full if candidates is None else candidates.shape[1]
+        prefilter = 0 < prefilter_m < k_avail and order > 1
         solve1 = _row_solver(prep, prep.corners, 1, d, cfg.prefilter_iters,
                              cfg.newton_clamp, plain)
         elements, refs, found, accepted = _locate_scan(
             points, prep, evaluate, solve1, cfg, fallback, chunk, k_full,
-            prefilter_m, prefilter)
+            prefilter_m, prefilter, candidates)
 
     refs_lo = None
     if polish and N:

@@ -253,6 +253,24 @@ def write_salvus_fixture(
     return nodal
 
 
+def write_exodus_fixture(
+    filename, mesh: StructuredMesh, parameters=("VP", "VS", "RHO"),
+    field_kind: str = "smooth",
+):
+    """Write the corner-vertex skeleton of a StructuredMesh as an Exodus II
+    file with analytic nodal fields."""
+    from .io import exodus as eio
+
+    base = smooth_field(mesh.vertices, field_kind)
+    nodal = {p: base * (1.0 + 0.1 * i) for i, p in enumerate(parameters)}
+    elemental = {"something_elemental": np.arange(mesh.nelem, dtype=float)}
+    eio.write_exodus(
+        filename, mesh.vertices, mesh.connectivity, nodal, elemental,
+        canonical_order=True,
+    )
+    return nodal
+
+
 def shell_targets(n_points: int, seed: int = 0) -> np.ndarray:
     """``n_points`` random targets [n, 3] inside the default shell_mesh
     chunk (the JAX package's bench.py draw, from ``seed``)."""

@@ -774,3 +774,118 @@ def test_grid_route_on_card_matches_cpu(dev, polish_mode, monkeypatch):
         pair = got.refs.double() + got.refs_lo.double()
         w_pair = want.refs.double() + want.refs_lo.double()
         assert float((pair.cpu() - w_pair)[keep].abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("order,shape_", [(1, (64, 64)), (4, (24, 24))])
+def test_newton_and_polish_kernels_2d_at_the_main_path_shapes(dev, order,
+                                                              shape_):
+    """K1 and K4 at 1/2 and 4/2 on 262,144 rows of the 2-D shapes the
+    pipelines run (a QUAD4 Exodus source, the ``grid2d`` box): K1's
+    acceptance agrees with its twin on >= 99.99% of rows and accepted
+    refs to 1e-5; K4 from those refs agrees on ok and to 1e-11."""
+    M = 262_144
+    args = _newton_args(dev, order, 2, M, seed=70 + order, shape_=shape_)
+    k_ref, k_res = newton.newton_rows(*args)
+    p_ref, p_res = newton.newton_refs_rows_ref(*args)
+    ka = (k_res < 1e-4) & (k_ref.abs().amax(-1) < 1.05)
+    pa = (p_res < 1e-4) & (p_ref.abs().amax(-1) < 1.05)
+    assert (ka == pa).double().mean() >= 0.9999
+    both = ka & pa
+    assert both.double().mean() > 0.8
+    assert float((k_ref - p_ref)[both].abs().max()) <= 1e-5
+    mesh = testing.box_mesh(shape=shape_, order=order, warp=0.15)
+    prep = tloc._mesh_prep(mesh.points, order, dev, want64=True)
+    rows = torch.nonzero(both).squeeze(1)
+    pargs = (args[0][rows].contiguous(), args[1][rows].contiguous(),
+             k_ref[rows].contiguous(), prep.ctr, prep.inv_scale,
+             prep.nodes64, order, 2, 1)
+    hi, lo, ok = polish.polish_pairs(*pargs)
+    t_hi, t_lo, t_ok = polish.polish_pairs_ref(*pargs)
+    assert (ok == t_ok).double().mean() >= 0.9999
+    keep = ok & t_ok
+    assert float(((hi.double() + lo.double())
+                  - (t_hi.double() + t_lo.double()))[keep].abs().max()
+                 ) <= 1e-11
+
+
+def test_newton_kernel_order1_sparse_ids_over_an_exodus_source(dev):
+    """K1 at 1/3 on the corner lattice of a 40 x 40 x 36 = 57,600-hex
+    shell, 262,144 rows whose ids are the nearest member of the grid
+    index (nearly every row of a block its own element): acceptance at
+    the Exodus paths' 1.025 agrees with the twin on >= 99.99% of rows,
+    accepted refs to 1e-5."""
+    src = testing.shell_mesh(n_lat=40, n_lon=40, n_rad=36, order=1)
+    assert src.nelem == 57_600 > tgrid.APPROX_GRID_MIN_SOURCES
+    prep = tloc._mesh_prep(src.points, 1, dev)
+    index = tgrid.get_grid_index(prep.centroids_host, tloc.ROUND1_MEMBERS,
+                                 dev)
+    pts = torch.as_tensor(testing.shell_targets(262_144, seed=5),
+                          device=dev)
+    ids = tgrid.nearest_member(index, pts, n_probe=tloc.ROUND1_PROBES)
+    assert int(torch.unique(ids).numel()) > 40_000
+    args = (pts, ids.contiguous(), prep.ctr, prep.inv_scale, prep.nodes, 1,
+            3, 18, 8.0)
+    before = newton.newton_rows.launches
+    k_ref, k_res = newton.newton_rows(*args)
+    assert newton.newton_rows.launches == before + 1
+    p_ref, p_res = newton.newton_refs_rows_ref(*args)
+    ka = (k_res < 1e-4) & (k_ref.abs().amax(-1) < 1.025)
+    pa = (p_res < 1e-4) & (p_ref.abs().amax(-1) < 1.025)
+    assert (ka == pa).double().mean() >= 0.9999
+    assert (ka & pa).double().mean() > 0.9
+    assert float((k_ref - p_ref)[ka & pa].abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("strategy", ["ladder", "scan"])
+def test_locate_given_candidates_on_card_matches_plain_path(dev, strategy):
+    """``locate(candidates=)`` through the kernels against ``plain=True``
+    on the card: found equal, elements on >= 99.9% of the accepted rows,
+    refs there to 1e-5; K1 launched, K2 not (no internal search)."""
+    src = testing.shell_mesh(n_lat=8, n_lon=8, n_rad=8, order=2)
+    pts = testing.shell_targets(40_000, seed=3)
+    pts[:4_000] *= 2.0
+    cent = torch.as_tensor(src.points.mean(axis=1), device=dev)
+    d2 = torch.cdist(torch.as_tensor(pts, device=dev), cent)
+    cand = d2.topk(6, dim=1, largest=False).indices.to(torch.int32)
+    n0, k0 = newton.newton_rows.launches, nearest.nearest.launches
+    kw = dict(fallback="sentinel", strategy=strategy, candidates=cand,
+              device=dev)
+    got = tloc.locate(pts, src.points, 2, **kw)
+    assert newton.newton_rows.launches > n0
+    assert nearest.nearest.launches == k0
+    want = tloc.locate(pts, src.points, 2, plain=True, **kw)
+    assert torch.equal(got.found, want.found)
+    assert got.found[4_000:].all() and not got.found[:4_000].any()
+    same = (got.elements == want.elements) & got.found
+    assert same.sum() >= 0.999 * got.found.sum()
+    assert float((got.refs - want.refs)[same].abs().max()) <= 1e-5
+
+
+def test_exodus_2_exodus_on_card_matches_cpu(dev, tmp_path):
+    """The Exodus file path (scipy only) on the card against the same call
+    on the CPU: every written value to rtol 1e-5 (an order-1 target on a
+    face is accepted by two hexes, so values, not ids)."""
+    import shutil
+
+    from multimesh_tpu_torch import engine
+    from multimesh_tpu_torch.io import exodus as eio
+
+    src = testing.shell_mesh(n_lat=10, n_lon=10, n_rad=8, order=1)
+    tgt = testing.shell_mesh(n_lat=7, n_lon=7, n_rad=6, order=1,
+                             r_inner=3.7e6, r_outer=6.2e6,
+                             lat_extent=(0.55, 1.15),
+                             lon_extent=(0.35, 1.35))
+    testing.write_exodus_fixture(tmp_path / "a.e", src, ("VP", "VS"))
+    testing.write_exodus_fixture(tmp_path / "b.e", tgt, ("VP", "VS"),
+                                 field_kind="linear")
+    shutil.copyfile(tmp_path / "b.e", tmp_path / "b_cpu.e")
+    n0 = newton.newton_rows.launches
+    engine.exodus_2_exodus(tmp_path / "a.e", tmp_path / "b.e",
+                           parameters=["VP", "VS"], device=dev)
+    assert newton.newton_rows.launches > n0
+    engine.exodus_2_exodus(tmp_path / "a.e", tmp_path / "b_cpu.e",
+                           parameters=["VP", "VS"], device="cpu")
+    for p in ("VP", "VS"):
+        np.testing.assert_allclose(
+            eio.Exodus(tmp_path / "b.e").get_nodal_field(p),
+            eio.Exodus(tmp_path / "b_cpu.e").get_nodal_field(p), rtol=1e-5)
