@@ -78,14 +78,17 @@ each on stdout:
    (10,267,500 slots) whose 4 layer interfaces coincide with the
    source's, 4 parameters, per-layer dedup -- warm-up and three timed
    calls, every parameter against its analytic value (< 1e-6), each
-   layer's operator against one built directly on that layer's arrays,
-   once with ``MMT_DF32_POLISH=1`` (K1, K2, K4, K5; < 1e-8) and once
-   through ``gll_2_gll_layered_multi_two`` (snap, tolerance 1.05);
+   layer's operator against one built directly on that layer's arrays
+   and the first chunk of that one against the plain path, once with
+   ``MMT_DF32_POLISH=1`` (K1, K2, K4, K5; < 1e-8; the same per-layer
+   comparisons, the plain twins held to 1e-10) and once through
+   ``gll_2_gll_layered_multi_two`` (snap, tolerance 1.05);
 14. the point queries (``phase_points``): ``engine.extract_regular_grid``
    on the ``gll`` source for a 216^3 = 10,077,696-point lat/lon/depth
    grid that overhangs the shell on every side, 3 parameters, sentinel:
    zeros exactly on the rows outside, < 1e-6 inside, the retry's rows
-   and share of the wall; then ``bench.py``'s ``grid2d`` shape (a 2-D
+   and share of the wall, one chunk from the middle of the grid against
+   the plain path (sentinel and scan retry included); then ``bench.py``'s ``grid2d`` shape (a 2-D
    order-4 24 x 24 warped box, 512 x 512 points) for K1 at 4/2.
 
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
@@ -128,7 +131,7 @@ import numpy as np
 import torch
 
 from multimesh_tpu_torch import (TransferOperator, _build, engine, hashing,
-                                 testing, utils_profile)
+                                 testing, utils, utils_profile)
 from multimesh_tpu_torch.config import LocateConfig, Precision
 from multimesh_tpu_torch.io import exodus as eio
 from multimesh_tpu_torch.ops import dedup
@@ -1463,7 +1466,7 @@ def phase_exodus(dev, smi, tmpdir):
           "walls_warm_s": walls, "wall_warm_median_s": median,
           "wall_warm_spread_s": spread,
           "mnodes_per_s_warm": got.shape[0] / median / 1e6,
-          "launches": launches, "num_missing": 0,
+          "launches": launches,
           "num_missing_plain": p_op.num_missing,
           "max_rel_err_vs_analytic": rel,
           "plain_max_rel_err_vs_analytic": p_rel,
@@ -1534,7 +1537,7 @@ def phase_exodus_gll(dev, smi, tgt, tmpdir):
     check(op.num_missing == 0, f"{op.num_missing} slots missing")
     check(np.array_equal(mem, sink), "the sink differs from the in-memory "
           "operator's values")
-    n_retry = op.n_retry
+    n_retry, n_missing = op.n_retry, op.num_missing
     del mem
 
     # the first chunk through the plain path: values, not element ids (a
@@ -1602,7 +1605,8 @@ def phase_exodus_gll(dev, smi, tgt, tmpdir):
           "wall_first_s": wall_first, "walls_warm_s": walls,
           "wall_warm_median_s": median, "wall_warm_spread_s": spread,
           "mslots_per_s_warm": n_slots / median / 1e6,
-          "launches": launches, "num_missing": 0, "n_retry": n_retry,
+          "launches": launches, "num_missing": n_missing,
+          "n_retry": n_retry,
           "peak_mem_gb": peak_gb, "max_rel_err_vs_analytic": rels,
           "plain_elements_agree": agree, "plain_max_rel_diff": vdiff,
           "stages_s": stages, "wall_profiled_s": wall_prof})
@@ -1677,30 +1681,86 @@ def phase_layered(dev, smi):
     check({"layered.masks_dedup", "layered.build", "operator.build",
            "layered.apply_write"} <= set(stages), f"stages {sorted(stages)}")
 
-    # each layer's operator against one built directly on its arrays
-    ops, src_masks, tgt_masks = engine._layered_operators(
-        engine._as_salvus(old), engine._as_salvus(fresh_target()), "all",
-        20, None,
-        accept_tol=1.04, fallback="fixed_ref", use_aabb=True, device=dev)
-    layers = {}
-    for layer, op in ops.items():
-        uniq, recon = dedup.unique_points(tgt.points[tgt_masks[layer]])
-        direct = TransferOperator.build(
-            src.points[src_masks[layer]], uniq, order=src.order,
-            cfg=engine._locate_cfg(20, accept_tol=1.04), device=dev,
-            **FLAGSHIP_KW)
-        same = (torch.equal(op.elements, direct.elements)
-                and torch.equal(op.refs, direct.refs)
-                and np.array_equal(op.recon.cpu().numpy(), recon))
-        layers[layer] = {"source_elements": int(src_masks[layer].sum()),
-                         "slots": int(tgt_masks[layer].sum()) * tgt.n_gll,
-                         "unique": int(uniq.shape[0]),
-                         "n_retry": op.n_retry,
-                         "num_missing": op.num_missing,
-                         "equal_direct": same}
-        check(same, f"layer {layer}'s operator differs from the one built "
-              "directly on its arrays")
-    del ops, direct
+    # each layer's operator against one built directly on its arrays, and
+    # that one's first chunk against the plain path: K1, K2 (and, polished,
+    # K4 and K5) against their twins at the layers' shapes -- sources of
+    # 1,024 elements, chunks of deduplicated points
+    uniq_of = {}
+
+    def layer_checks():
+        """layer -> what was compared (``engine._locate_cfg`` reads
+        MMT_DF32_POLISH, so the caller chooses the path)."""
+        ops, src_masks, tgt_masks = engine._layered_operators(
+            engine._as_salvus(old), engine._as_salvus(fresh_target()),
+            "all", 20, None, accept_tol=1.04, fallback="fixed_ref",
+            use_aabb=True, device=dev)
+        kw = dict(order=src.order, cfg=engine._locate_cfg(20, accept_tol=1.04),
+                  device=dev, **FLAGSHIP_KW)
+        out = {}
+        for layer, op in ops.items():
+            if layer not in uniq_of:
+                uniq_of[layer] = dedup.unique_points(
+                    tgt.points[tgt_masks[layer]])
+            uniq, recon = uniq_of[layer]
+            src_l = src.points[src_masks[layer]]
+            direct = TransferOperator.build(src_l, uniq, **kw)
+            polished = direct.refs_lo is not None
+            same = (torch.equal(op.elements, direct.elements)
+                    and torch.equal(op.refs, direct.refs)
+                    and (not polished
+                         or torch.equal(op.refs_lo, direct.refs_lo))
+                    and np.array_equal(op.recon.cpu().numpy(), recon))
+            p_op = TransferOperator.build(src_l, uniq[:ROWS], plain=True,
+                                          **kw)
+            f_l = torch.as_tensor(np.stack(
+                [old.element_nodal_fields[p][src_masks[layer]]
+                 for p in params]), dtype=torch.float64, device=dev)
+            vals = direct.apply(f_l)[:ROWS]
+            if polished:
+                p_vals = polish.apply_pairs_ref(
+                    p_op.refs, p_op.refs_lo, p_op.elements, f_l, src.order, 3)
+                pair = (direct.refs[:ROWS].double()
+                        + direct.refs_lo[:ROWS].double())
+                p_pair = p_op.refs.double() + p_op.refs_lo.double()
+            else:
+                p_vals = p_op.apply(f_l)
+                pair, p_pair = direct.refs[:ROWS], p_op.refs
+            agree = ((direct.elements[:ROWS] == p_op.elements)
+                     & (direct.found[:ROWS] == p_op.found))
+            out[layer] = {
+                "source_elements": int(src_masks[layer].sum()),
+                "slots": int(tgt_masks[layer].sum()) * tgt.n_gll,
+                "unique": int(uniq.shape[0]), "n_retry": op.n_retry,
+                "num_missing": op.num_missing, "equal_direct": same,
+                "plain_rows": int(p_op.elements.shape[0]),
+                "plain_found_agree": float(
+                    (direct.found[:ROWS] == p_op.found).double().mean()),
+                "plain_elements_agree": float(agree.double().mean()),
+                "plain_max_abs_ref_diff": float(
+                    (pair - p_pair)[agree].abs().max()),
+                "plain_max_rel_diff": float(
+                    ((vals - p_vals).abs() / p_vals.abs())[agree].max())}
+            check(same, f"layer {layer}'s operator differs from the one "
+                  "built directly on its arrays")
+        return out
+
+    def hold_plain(layers, ref_tol, val_tol, what):
+        for layer, c in layers.items():
+            check(c["plain_rows"] == ROWS, f"{what} layer {layer}: "
+                  f"{c['plain_rows']} rows through the plain path")
+            check(c["plain_found_agree"] >= 0.999
+                  and c["plain_elements_agree"] >= 0.999,
+                  f"{what} layer {layer}: plain path agrees on found "
+                  f"{c['plain_found_agree']:.6f}, on elements "
+                  f"{c['plain_elements_agree']:.6f}")
+            check(c["plain_max_abs_ref_diff"] <= ref_tol,
+                  f"{what} layer {layer}: plain path refs differ by "
+                  f"{c['plain_max_abs_ref_diff']:.3g}")
+            check(c["plain_max_rel_diff"] <= val_tol,
+                  f"{what} layer {layer}: plain path values differ by "
+                  f"{c['plain_max_rel_diff']:.3g}")
+
+    layers = layer_checks()
 
     # multi_two's semantics (snap, tolerance 1.05, 30 candidates), once
     wall_two, rels_two = run(engine.gll_2_gll_layered_multi_two)
@@ -1712,6 +1772,7 @@ def phase_layered(dev, smi):
         reset_launches()
         wall_df32, rels_df32 = run()
         launches_df32 = read_launches()
+        layers_df32 = layer_checks()
     finally:
         del os.environ["MMT_DF32_POLISH"]
     median, spread = _median_spread(walls)
@@ -1726,8 +1787,10 @@ def phase_layered(dev, smi):
           "wall_profiled_s": wall_prof,
           "multi_two": {"wall_s": wall_two, "max_rel_err": rels_two},
           "df32": {"wall_s": wall_df32, "max_rel_err": rels_df32,
-                   "launches": launches_df32}})
+                   "launches": launches_df32, "layers": layers_df32}})
     check(max(rels) < 1e-6, f"layered max rel errs {rels} >= 1e-6")
+    hold_plain(layers, 1e-5, 1e-5, "layered")
+    hold_plain(layers_df32, 1e-10, 1e-10, "layered df32")
     check(max(rels_two) < 1e-6, f"multi_two max rel errs {rels_two} >= 1e-6")
     check(max(rels_df32) < 1e-8, f"layered df32 max rel errs {rels_df32} "
           ">= 1e-8")
@@ -1785,12 +1848,47 @@ def phase_points(dev, smi, src):
     check({"operator.build", "points.apply"} <= set(stages),
           f"stages {sorted(stages)}")
 
+    # one chunk of the grid through the plain path, sentinel fallback and
+    # scan retry included: the engine's 20th chunk, 5.6 depth levels from
+    # the middle of the grid, each with points inside and outside (the
+    # first chunk lies wholly above the surface)
+    dd, la, lo = np.meshgrid(ds.depth, ds.lat, ds.lon, indexing="ij")
+    start = dd.size // 2 // ROWS * ROWS
+    rows = slice(start, start + ROWS)
+    chunk = utils.latlondepth_to_xyz(np.stack(
+        [la.ravel()[rows], lo.ravel()[rows], dd.ravel()[rows]], axis=-1))
+    f_dev = torch.as_tensor(
+        np.stack([mesh.element_nodal_fields[p] for p in params]), device=dev)
+    kw = dict(order=src.order, cfg=engine.DEFAULT_LOCATE,
+              fallback="sentinel", prefilter_m=engine.PREFILTER_M, device=dev)
+    k_op = TransferOperator.build(src.points, chunk, **kw)
+    p_op = TransferOperator.build(src.points, chunk, plain=True, **kw)
+    k_vals, p_vals = k_op.apply(f_dev), p_op.apply(f_dev)
+    found_agree = k_op.found == p_op.found
+    same = found_agree & (k_op.elements == p_op.elements)
+    hit = same & k_op.found
+    run_vals = torch.as_tensor(np.stack(
+        [ds[p].ravel()[rows] for p in params], axis=-1),
+        dtype=k_vals.dtype, device=dev)
+    plain_chunk = {
+        "rows": ROWS, "first_row": start,
+        "found": float(k_op.found.double().mean()),
+        "n_retry": k_op.n_retry, "n_retry_plain": p_op.n_retry,
+        "found_agree": float(found_agree.double().mean()),
+        "elements_agree": float(same.double().mean()),
+        "max_rel_diff": float(
+            ((k_vals - p_vals).abs() / p_vals.abs())[hit].max()),
+        "missing_rows_zero": bool((k_vals[~k_op.found] == 0).all()
+                                  and (p_vals[~p_op.found] == 0).all()),
+        "rows_equal_run": float(
+            (k_vals == run_vals).all(dim=-1).double().mean())}
+    del k_op, p_op, k_vals, p_vals, run_vals, f_dev, chunk
+
     # where each grid point lies: the source spans colatitude 0.5..1.2,
     # longitude 0.3..1.4 rad and radius 3.48e6..6.371e6 m in 16 elements
     # each way; a point within 5% of an element's width of the hull may
     # or may not be accepted (accept_tol 1.05), and is held to neither
     shape3 = (GRID_DEPTH[2], GRID_LAT[2], GRID_LON[2])
-    dd, la, lo = np.meshgrid(ds.depth, ds.lat, ds.lon, indexing="ij")
     r = 6.371e6 - dd
     colat, lon = np.deg2rad(90.0 - la), np.deg2rad(lo)
     inside = np.ones(shape3, bool)
@@ -1822,8 +1920,23 @@ def phase_points(dev, smi, src):
           "retry_share_of_wall": retry["s"] / wall_timed,
           "stages_s": stages,
           "outside_rows_zero": zeros, "inside_rows_nonzero": nonzero,
-          "max_rel_err_inside": rels, "peak_mem_gb": peak_gb})
+          "max_rel_err_inside": rels, "peak_mem_gb": peak_gb,
+          "plain_chunk": plain_chunk})
     check(zeros, "a grid point outside the shell is not zero")
+    check(0.05 < plain_chunk["found"] < 0.95 and plain_chunk["n_retry"] > 0,
+          f"the plain path's chunk does not mix inside and outside rows: "
+          f"{plain_chunk}")
+    check(plain_chunk["found_agree"] >= 0.999
+          and plain_chunk["elements_agree"] >= 0.999,
+          f"regular grid plain path: found agree "
+          f"{plain_chunk['found_agree']:.6f}, elements "
+          f"{plain_chunk['elements_agree']:.6f}")
+    check(plain_chunk["max_rel_diff"] <= 1e-5, "regular grid plain path "
+          f"values differ by {plain_chunk['max_rel_diff']:.3g}")
+    check(plain_chunk["missing_rows_zero"], "a row without an element is "
+          "not zero")
+    check(plain_chunk["rows_equal_run"] >= 0.999, "the chunk built alone "
+          f"equals the run's rows on {plain_chunk['rows_equal_run']:.6f}")
     check(nonzero, "a grid point inside the shell was not located")
     check(max(rels) < 1e-6, f"regular grid max rel errs {rels} >= 1e-6")
     del ds, truth, inside, outside

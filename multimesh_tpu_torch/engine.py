@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import os
 import pathlib
-import sys
 from typing import Callable, Dict, List, Tuple, Union
 
 import numpy as np
@@ -82,10 +81,9 @@ def _as_salvus(mesh, fast_mode=False):
         from .io import salvus as sio
 
         return sio.SalvusMesh(mesh, fast_mode=fast_mode)
-    # an object can only be a SalvusMesh if its module has been imported
-    # (looked up, not imported: the module needs h5py)
-    sio = sys.modules.get(__package__ + ".io.salvus")
-    if sio is not None and isinstance(mesh, sio.SalvusMesh):
+    # a SalvusMesh (or a subclass) passes through; told by its class's
+    # name, since importing io.salvus for isinstance needs h5py
+    if any(c.__name__ == "SalvusMesh" for c in type(mesh).__mro__):
         return mesh
     pts = getattr(mesh, "points", None)
     conn = getattr(mesh, "connectivity", None)
@@ -840,7 +838,7 @@ def gll_2_points_arrays(
         fallback="fixed_ref",
         use_aabb=True,
         prefilter_m=PREFILTER_M,
-        device=_device(device),
+        device=device,
     )
     # [P, E, n], all parameters in one device pass
     return op.apply(np.ascontiguousarray(np.moveaxis(gll_data, 1, 0)))
@@ -910,7 +908,7 @@ def get_element_weights(
         fallback="snap" if snap_to_nearest else "sentinel",
         prefilter_m=PREFILTER_M,
         centroids=centroids,
-        device=_device(device),
+        device=device,
     )
     return _host(op.elements), _host(op.weights)
 
@@ -940,7 +938,7 @@ def get_element_weights_layered(
             cfg=cfg,
             fallback="sentinel",
             candidates=np.asarray(nearest_elements[layer]),
-            device=_device(device),
+            device=device,
         )
         elems[layer] = _host(op.elements)
         coeffs[layer] = _host(op.weights)
@@ -964,7 +962,7 @@ def exodus_2_exodus(
     exo_b = eio.Exodus(mesh_b, mode="a")
     parameters, corner_nodes, conn = _exodus_source(exo_a, parameters)
     op = _exodus_operator(corner_nodes, exo_b.points, nelem_to_search,
-                          _device(device))
+                          device)
     # all parameters in ONE device pass + ONE host pull
     fields = np.stack(
         [exo_a.get_nodal_field(p)[conn] for p in parameters]
@@ -1020,7 +1018,7 @@ def interpolate_to_points(
         cfg=cfg,
         fallback="sentinel",
         prefilter_m=PREFILTER_M,
-        device=_device(device),
+        device=device,
     )
     if op.num_missing:
         print(

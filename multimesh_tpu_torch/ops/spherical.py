@@ -91,7 +91,7 @@ def map_to_ellipse(base_mesh, mesh, cfg: LocateConfig = DEFAULT_LOCATE,
         op = TransferOperator.build(
             base_mesh.points, tgt, order=base_mesh.shape_order, cfg=cfg,
             fallback="snap", prefilter_m=PREFILTER_M,
-            device="cuda" if device is None else device,
+            device=device,
         )
         point_ratio = op.apply(ratio).cpu().numpy().reshape(
             mesh.points.shape[:2])

@@ -105,7 +105,7 @@ class TransferOperator:
               cfg: LocateConfig = DEFAULT_LOCATE, *,
               fallback: str = "sentinel", use_aabb: bool = False,
               prefilter_m: int = 0, centroids=None, candidates=None,
-              recon=None, device="cuda",
+              recon=None, device=None,
               plain: bool = False) -> "TransferOperator":
         """Locate ``target_points`` [N, d] in the source mesh
         ``source_points`` [E, (p+1)^d, d] on ``device`` (see

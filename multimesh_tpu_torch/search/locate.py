@@ -665,11 +665,12 @@ def locate(points, elem_nodes, order: int,
            cfg: LocateConfig = DEFAULT_LOCATE, *, fallback: str = "sentinel",
            use_aabb: bool = False, centroids=None, candidates=None,
            prefilter_m: int = 0, strategy: str = "auto",
-           chunk: int = 262_144, want_weights: bool = True, device="cuda",
+           chunk: int = 262_144, want_weights: bool = True, device=None,
            plain: bool = False) -> LocateResult:
     """Locate each query point in the source mesh.
 
-    points [N, d] (numpy or tensor; moved to ``device`` as f64);
+    points [N, d] (numpy or tensor; moved to ``device`` -- None means
+    ``cuda`` -- as f64);
     elem_nodes [E, (p+1)^d, d] (numpy or tensor, any E; prepared in f64,
     see ``_mesh_prep``; freeze a large lattice with
     ``setflags(write=False)`` and it is hashed once, not on every call).
@@ -687,7 +688,7 @@ def locate(points, elem_nodes, order: int,
     ``plain=True`` runs the plain twins on any device (to check the
     kernels against them).
     """
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"locate: unsupported device {device}")
     if isinstance(elem_nodes, torch.Tensor):
