@@ -89,14 +89,32 @@ each on stdout:
    zeros exactly on the rows outside, < 1e-6 inside, the retry's rows
    and share of the wall, one chunk from the middle of the grid against
    the plain path (sentinel and scan retry included); then ``bench.py``'s ``grid2d`` shape (a 2-D
-   order-4 24 x 24 warped box, 512 x 512 points) for K1 at 4/2.
+   order-4 24 x 24 warped box, 512 x 512 points) for K1 at 4/2;
+15. the sharded schemes (``phase_sharded``, after the point queries and
+   before the ``gll_big`` source is built), at ``bench.py``'s ``sharded``
+   config (the ``gll`` source, the same 10,000,000 device-resident
+   targets, 3 parameters, snap, ``device_out=True``): (a)
+   ``sharded_transfer`` on the one-rank nccl group of ``make_mesh(1)``,
+   one warm-up and three timed calls, every column < 1e-6 against
+   ``smooth_field``, bit for bit against ``TransferOperator`` on the same
+   inputs (or the differing rows counted and held to rtol 1e-6), K1 and K2
+   launches those of the slice, peak memory; (b) 2 gloo ranks sharing
+   the card through ``launch.run_ranks`` (exchanges staged on the host):
+   ``sharded_transfer`` and ``source_sharded_transfer`` with sentinel and
+   with snap, three timed calls each, held to (a) at rtol 1e-6 and to
+   the analytic field, the sentinel run's found count the operator's; per
+   rank its rows, pass-2 window, misses, overflow, K1 / K2 launches,
+   walls and exchange seconds; then, in this process, the routing owners
+   of the first 262,144 points against the twin of K2 and rank 0's pass 1
+   on its first 262,144 points against the plain path.
 
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
 slice's run, as ``launches_file`` in the file path's df32 call, as
 ``launches_big`` in the grid route's df32 run, and as ``launches_exodus``,
 ``launches_exodus_gll``, ``launches_layered`` (its df32 call),
-``launches_points`` and ``launches_grid2d`` in phases 11-14; K1 also with
+``launches_points`` and ``launches_grid2d`` in phases 11-14 and
+``launches_sharded`` in (a) of phase 15; K1 also with
 its order-1 times on the Exodus -> GLL path's first chunk
 (``*_order1_chunk``) and on rows spread over its source
 (``*_order1_sparse``),
@@ -129,6 +147,7 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimesh_tpu_torch import (TransferOperator, _build, engine, hashing,
                                  testing, utils, utils_profile)
@@ -138,6 +157,7 @@ from multimesh_tpu_torch.ops import dedup
 from multimesh_tpu_torch.search import locate as _locate
 from multimesh_tpu_torch.core import shape
 from multimesh_tpu_torch.search import grid, knn, nearest, newton, polish
+from multimesh_tpu_torch.dist import launch, sharding
 
 ROWS = 262_144  # one locate chunk
 N_TARGETS = 10_000_000
@@ -181,6 +201,9 @@ GRID_DEPTH = (-1.0e5, 3.0e6, 216)
 # bench.py's ``grid2d`` shape
 GRID2D_SRC = dict(shape=(24, 24), order=4, warp=0.05)
 GRID2D_N = 512
+# the sharded schemes' second part: ranks sharing the one card (gloo)
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT_S = 300
 # published peaks of one H100 SXM (NVIDIA's data sheet; at 700 W): f32 and
 # f64 outside the tensor cores, HBM3
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -739,6 +762,7 @@ def phase_slice(dev, src, pts_d, fields, truth):
           "n_retry": op.n_retry, "launches": launches,
           "max_rel_err": rel, "peak_mem_gb": peak_gb,
           "plain_elements_agree": agree, "plain_max_rel_diff": vdiff})
+    return launches
 
 
 def phase_df32_slice(dev, src, pts_d, fields, truth):
@@ -1983,6 +2007,216 @@ def phase_points(dev, smi, src):
     return launches, launches2d
 
 
+def _sharded_walls(fn):
+    """One warm-up and three timed calls of ``fn``: (the last result, the
+    walls, the launches of the first timed call, ``sharding.LAST_RUN``
+    after it, the peak device memory of the timed calls in GB)."""
+    fn()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(3):
+        if i == 0:
+            reset_launches()
+        out, wall = _host_s(fn)
+        walls.append(wall)
+        if i == 0:
+            launches, stats = read_launches(), dict(sharding.LAST_RUN)
+    return (out, walls, launches, stats,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def sharded_rank(rank, inputs, dev):
+    """Part (b) of ``phase_sharded`` on one of the ranks that share the
+    card ``dev`` (run by ``launch.run_ranks``): each scheme at the
+    ``sharded`` config, warm once and timed three times; rank 0 also
+    returns the values, as f32 (what both schemes compute in)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(inputs) as z:
+        pts, nodes, fields = z["pts"], z["nodes"], z["fields"]
+    pts_d = torch.as_tensor(pts, device=dev)
+    mesh = sharding.make_mesh(device=dev)
+    kw = dict(order=4, cfg=SLICE_CFG, mesh=mesh, device=dev)
+    runs = {
+        "sharded": lambda: sharding.sharded_transfer(
+            pts_d, nodes, torch.as_tensor(fields, device=dev),
+            fallback="snap", device_out=True, **kw),
+        # host sources: each rank uploads only its shard
+        "source_sentinel": lambda: sharding.source_sharded_transfer(
+            pts_d, nodes, fields, fallback="sentinel", **kw),
+        "source_snap": lambda: sharding.source_sharded_transfer(
+            pts_d, nodes, fields, fallback="snap", **kw),
+    }
+    out = {"backend": dist.get_backend(mesh.get_group()),
+           "world": mesh.size()}
+    for name, fn in runs.items():
+        vals, walls, launches, stats, peak = _sharded_walls(fn)
+        out[name] = json.dumps({
+            "wall_s": _median_spread(walls)[0], "walls_s": walls,
+            "launches": {k: launches[k]
+                         for k in ("newton_rows", "nearest_centroid")},
+            "peak_mem_gb": peak, **stats})
+        if rank == 0:
+            out[f"{name}_values"] = np.asarray(
+                vals.cpu() if isinstance(vals, torch.Tensor) else vals,
+                dtype=np.float32)
+    return out
+
+
+def phase_sharded(dev, smi, src, slice_launches):
+    """The sharded schemes (see the module docstring).  Returns the
+    launch counts of (a)'s first timed call."""
+    pts = testing.shell_targets(N_TARGETS, seed=0)
+    pts_d = torch.as_tensor(pts, device=dev)
+    base = testing.element_nodal_field(src, "smooth")
+    fields_np = np.stack([base * (1 + 0.1 * i) for i in range(3)])
+    fields = torch.as_tensor(fields_np, device=dev)
+    truth = torch.as_tensor(testing.smooth_field(pts), device=dev)
+
+    # (a) world size 1: make_mesh(1) starts a one-rank nccl group
+    mesh = sharding.make_mesh(1, device=dev)
+    backend = dist.get_backend(mesh.get_group())
+    check(backend == "nccl", f"make_mesh(1) on the card made a {backend} "
+          "group")
+    vals, walls, launches, stats, peak_gb = _sharded_walls(
+        lambda: sharding.sharded_transfer(
+            pts_d, src.points, fields, order=src.order, cfg=SLICE_CFG,
+            fallback="snap", mesh=mesh, device_out=True, device=dev))
+    wall, spread = _median_spread(walls)
+    k12 = ("newton_rows", "nearest_centroid")
+    check(all(launches[k] > 0 for k in k12)
+          and all(launches[k] == slice_launches[k] for k in k12),
+          f"sharded launches {launches} differ from the slice's "
+          f"{slice_launches}")
+    check(vals.dtype == torch.float32 and tuple(vals.shape) == (N_TARGETS, 3),
+          f"sharded values {vals.dtype} {tuple(vals.shape)}")
+    rels = max_rel_columns(vals, truth)
+    check(max(rels) < 1e-6, f"sharded max rel errs {rels} >= 1e-6")
+    # the operator on the same inputs: the same program, so bit for bit
+    want = TransferOperator.build(
+        src.points, pts_d, order=src.order, cfg=SLICE_CFG, fallback="snap",
+        device=dev).apply(fields)
+    differ = (vals != want).any(dim=1)
+    n_differ = int(differ.sum())
+    op_diff = (float(((vals - want).abs() / want.abs())[differ].max())
+               if n_differ else 0.0)
+    check(op_diff <= 1e-6, f"sharded rows differ from the operator's by "
+          f"{op_diff:.3g}")
+    del want, differ
+    part_a = {"world": 1, "backend": backend, "wall_s": wall,
+              "spread_s": spread, "walls_s": walls,
+              "mpts_per_s": N_TARGETS / wall / 1e6,
+              "launches": launches, "exchange_s": stats["exchange_s"],
+              "max_rel_err": rels, "rows_differing_from_operator": n_differ,
+              "max_rel_diff_operator": op_diff, "peak_mem_gb": peak_gb}
+    dist.destroy_process_group()
+
+    # (b) SHARDED_RANKS gloo ranks sharing the card
+    sentinel = TransferOperator.build(
+        src.points, pts_d, order=src.order, cfg=SLICE_CFG,
+        fallback="sentinel", device=dev)
+    n_found = int(sentinel.found.sum())
+    del sentinel
+    _build.library()  # built here: the ranks only load it
+    with tempfile.TemporaryDirectory() as tmpdir:
+        inputs = os.path.join(tmpdir, "inputs.npz")
+        np.savez(inputs, pts=pts, nodes=src.points, fields=fields_np)
+        ranks, ranks_s = _host_s(lambda: launch.run_ranks(
+            sharded_rank, SHARDED_RANKS, backend="gloo", args=(inputs, dev),
+            timeout_s=SHARDED_TIMEOUT_S))
+    del pts
+    part_b = {"world": SHARDED_RANKS, "backend": str(ranks[0]["backend"]),
+              "command_s": ranks_s, "found_operator": n_found}
+    for name in ("sharded", "source_sentinel", "source_snap"):
+        per_rank = [json.loads(str(r[name])) for r in ranks]
+        got = torch.as_tensor(ranks[0][f"{name}_values"], device=dev)
+        found = got[:, 0] != 0
+        rel_a = ((got - vals).abs() / vals.abs())[found]
+        entry = {"ranks": per_rank, "found": int(found.sum()),
+                 "max_rel_err": [
+                     _max_rel_where(got[:, i], truth * (1 + 0.1 * i), found)
+                     for i in range(3)],
+                 "max_rel_diff_a": float(rel_a.max()),
+                 "rows_above_1e-6_of_a": int((rel_a > 1e-6).sum())}
+        part_b[name] = entry
+        check(all(p["launches"]["newton_rows"] > 0 for p in per_rank),
+              f"{name}: K1 was not launched on every rank: {per_rank}")
+        if name.startswith("source"):
+            check(all(p["launches"]["nearest_centroid"] > 0
+                      for p in per_rank),
+                  f"{name}: K2 (routing) was not launched: {per_rank}")
+            unfound = per_rank[0]["unfound"]
+            check(N_TARGETS - unfound == entry["found"],
+                  f"{name}: {unfound} unfound against the values' zeros")
+        if name == "source_sentinel":
+            check(entry["found"] == n_found,
+                  f"source-sharded found {entry['found']} != the "
+                  f"operator's {n_found}")
+        check(max(entry["max_rel_err"]) < 1e-6,
+              f"{name}: max rel errs {entry['max_rel_err']} >= 1e-6")
+        check(entry["max_rel_diff_a"] <= 1e-6,
+              f"{name}: {entry['rows_above_1e-6_of_a']} rows differ from "
+              f"(a) by up to {entry['max_rel_diff_a']:.3g}")
+    del got, rel_a, vals
+
+    # the routing and rank 0's pass 1, kernels against twins, first chunk
+    shard_ids, reps, center, bin_shard = sharding.partition_source(
+        src.points, SHARDED_RANKS)
+    owner = sharding.route_points(pts_d, reps, center, bin_shard)
+    plain_owner = sharding.route_points(pts_d[:ROWS], reps, center,
+                                        bin_shard, plain=True)
+    route_agree = float((owner[:ROWS] == plain_owner).double().mean())
+    mine = torch.nonzero(owner == 0).squeeze(1)[:ROWS]
+    ids = np.sort(shard_ids[0])
+
+    def pass1(plain):
+        return sharding.local_try(
+            pts_d[mine], src.points[ids],
+            fields[:, torch.as_tensor(ids, device=dev)], src.order,
+            sharding.pass_cfg(SLICE_CFG, "snap"), True, strategy="auto",
+            chunk=ROWS, device=dev, plain=plain)
+
+    # a row missed here lies in an element of the other shard, and pass 2
+    # decides it: its local best-so-far depends on which candidates the
+    # ladder tried and on the convergence flags of solves extrapolated far
+    # outside, which K1 and its twin may flip, so elements and values are
+    # held on the accepted rows, and of the missed rows only that both
+    # paths missed them (their scores are recorded)
+    k_score, k_vals, k_res = pass1(False)
+    p_score, p_vals, p_res = pass1(True)
+    same = (k_res.found == p_res.found) & (k_res.elements == p_res.elements)
+    both = k_res.accepted & p_res.accepted
+    missed = ~k_res.accepted & ~p_res.accepted
+    part_b["plain_pass1"] = {
+        "rows": int(mine.shape[0]), "shard_elements": int(ids.size),
+        "found_agree": float((k_res.found == p_res.found).double().mean()),
+        "accepted_agree": float(
+            (k_res.accepted == p_res.accepted).double().mean()),
+        "missed": int(missed.sum()),
+        "elements_agree": float(same.double().mean()),
+        "elements_agree_accepted": float(same[both].double().mean()),
+        "max_rel_diff_missed_score": float(
+            ((k_score - p_score).abs() / p_score)[missed].max()),
+        "max_rel_diff": float(((k_vals - p_vals).abs()
+                               / p_vals.abs())[same & both].max())}
+    part_b["routing_plain_agree"] = route_agree
+    emit({"phase": "sharded", "nvidia_smi": smi, "targets": N_TARGETS,
+          "elements": src.nelem, "params": 3, "a": part_a, "b": part_b})
+    check(route_agree >= 0.999, f"routing agrees with the twin on "
+          f"{route_agree:.6f} < 0.999")
+    p1 = part_b["plain_pass1"]
+    check(p1["found_agree"] >= 0.999 and p1["accepted_agree"] >= 0.999
+          and p1["elements_agree_accepted"] >= 0.999,
+          f"rank 0's pass 1 against the plain path: {p1}")
+    check(p1["max_rel_diff"] <= 1e-5, f"rank 0's pass 1 values differ from "
+          f"the plain path's by {p1['max_rel_diff']:.3g}")
+    return launches
+
+
+def _max_rel_where(vals, truth, rows):
+    return float(((vals[rows].double() - truth[rows]).abs()
+                  / truth[rows].abs()).max())
+
+
 def profile(dev, src, pts_d, fields, targets, case, big):
     """``--profile``: per run of the time breakdown in PERF.md (the
     slices, the flagship options, the scan, the file path's ``case.run``
@@ -2094,7 +2328,7 @@ def main():
     k4 = phase_polish(dev, solved)
     del solved
     k5 = phase_apply(dev, src, fields)
-    phase_slice(dev, src, pts_d, fields, truth)
+    launches_slice = phase_slice(dev, src, pts_d, fields, truth)
     launches = phase_df32_slice(dev, src, pts_d, fields, truth)
     order1 = phase_flagship(dev, src, pts, fields)
     del pts, pts_d, fields
@@ -2113,6 +2347,8 @@ def main():
     launches_layered = phase_layered(dev, smi)
     clear_caches()
     launches_points, launches_2d = phase_points(dev, smi, src)
+    clear_caches()
+    launches_sharded = phase_sharded(dev, smi, src, launches_slice)
     # the small case's tensors and caches go before the 499,200-element one
     del src, centroids
     clear_caches()
@@ -2136,6 +2372,7 @@ def main():
         entry["launches_layered"] = launches_layered[name]
         entry["launches_points"] = launches_points[name]
         entry["launches_grid2d"] = launches_2d[name]
+        entry["launches_sharded"] = launches_sharded[name]
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
     k1["launches_order1"] = order1
     print(smi, flush=True)

@@ -889,3 +889,45 @@ def test_exodus_2_exodus_on_card_matches_cpu(dev, tmp_path):
         np.testing.assert_allclose(
             eio.Exodus(tmp_path / "b.e").get_nodal_field(p),
             eio.Exodus(tmp_path / "b_cpu.e").get_nodal_field(p), rtol=1e-5)
+
+
+def test_sharded_schemes_at_world_size_1_on_card(dev):
+    """Both sharded schemes on a one-rank nccl group (``make_mesh(1)``)
+    against ``TransferOperator`` on the card, bit for bit: the replicated
+    scheme runs the operator's program on every row, and the
+    source-sharded one's only rank holds every element in global order
+    (its pass 2 retries the misses against the same elements).  K1 and
+    K2 were launched; the group is destroyed after."""
+    import torch.distributed as dist
+
+    from multimesh_tpu_torch.dist import (make_mesh, sharded_transfer,
+                                          source_sharded_transfer)
+
+    src = testing.shell_mesh(n_lat=8, n_lon=8, n_rad=8, order=4)  # E = 512
+    pts = testing.shell_targets(50_000, seed=4)
+    base = testing.element_nodal_field(src, "smooth")
+    fields = np.stack([base, 2 * base])
+    mesh = make_mesh(1, device=dev)
+    try:
+        assert dist.get_backend(mesh.get_group()) == "nccl"
+        n0, k0 = newton.newton_rows.launches, nearest.nearest.launches
+        got = sharded_transfer(torch.as_tensor(pts, device=dev), src.points,
+                               fields, order=4, fallback="snap", mesh=mesh,
+                               device_out=True, device=dev)
+        assert newton.newton_rows.launches > n0
+        assert nearest.nearest.launches > k0
+        want = TransferOperator.build(src.points, pts, order=4,
+                                      fallback="snap", device=dev).apply(
+            torch.as_tensor(fields, device=dev))
+        assert got.device.type == "cuda" and torch.equal(got, want)
+        for fallback in ("sentinel", "snap"):
+            want = TransferOperator.build(
+                src.points, pts, order=4, fallback=fallback,
+                device=dev).apply(torch.as_tensor(fields, device=dev))
+            got = source_sharded_transfer(pts, src.points, fields, order=4,
+                                          fallback=fallback, mesh=mesh,
+                                          device=dev)
+            np.testing.assert_array_equal(got,
+                                          want.double().cpu().numpy())
+    finally:
+        dist.destroy_process_group()
