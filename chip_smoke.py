@@ -7,15 +7,26 @@ kernels of ``multimesh_tpu_torch/csrc`` itself.  Phases, one JSON line
 each on stdout:
 
 1. device and build: ``nvidia-smi`` name and power limit, torch / CUDA
-   versions, the kernel build time;
+   versions, the kernel build time, and ``nvcc -Xptxas -v``'s registers,
+   spill bytes and shared memory of every kernel instantiation;
 2. K2 (nearest centroid) against its plain PyTorch twin on one 262,144-
    query chunk of the ``gll`` configuration;
-3. K1 (Newton rows) against its twin on 262,144 rows at every order/dim
-   the kernel is built for: 4/3, 2/3, 1/3, 2/2, 1/2 and 4/2;
+3. K1 (Newton rows) against its twin on 262,144 rows at 4/3, timed, and
+   its order-1 use as the scan's prefilter;
 4. K4 (f64 polish) against its twin on 262,144 accepted K1 solves of
-   phase 3 at the same orders and dims, and on known refs;
+   phase 3, and on known refs, timed;
 5. K5 (pair apply) against its twin on 262,144 rows, 3 parameters,
-   order 4, 3-D, and on the apply's 1,048,576-row chunk;
+   order 4, 3-D, and on the apply's 1,048,576-row chunk; then
+   (``phase_orders``) K1, K4 and K5 against their twins at every
+   (order, dim) pair they are built for, orders 1-7 in 2-D and 3-D, on
+   65,536 rows each (3-D: the ``gll`` shell at that order; 2-D: a
+   warped 64 x 64 box, at 4/2 the ``grid2d`` source), with each one's
+   time, its grouping's and its kernel's, and its bound; and one
+   ``TransferOperator.build`` + ``apply`` at orders 3 and 6 on the
+   ``gll`` shell at that order for the slice's first 1,000,000 targets,
+   3 parameters, f32 and with the df32 polish: the polished values
+   < 1e-6 against the analytic field, the f32 ones within 2e-6 of them
+   (at order 6 the f32 path alone reaches ~1.1e-6);
 6. the slice: ``TransferOperator.build(...).apply(...)`` at the ``gll``
    configuration -- an order-4 spherical-shell source of 4,096 elements,
    10,000,000 targets, 3 parameters, snap fallback -- once to warm up and
@@ -24,6 +35,9 @@ each on stdout:
 7. the df32 slice: the same with ``LocateConfig(df32_polish=True)``
    (K1, K2, K4, K5), warm and timed, held to max rel err < 1e-8, its
    first chunk against the plain twins; then ``f64_polish=True`` once;
+   then (``phase_f64``) ``Precision.F64`` on the first 262,144 targets:
+   f64 refs, < 1e-8 against the analytic field, bit for bit the same
+   call with ``f64_polish=True``;
 8. the flagship options (``gll_2_gll``'s locate call): 2% of the
    targets lifted just above the source's outer surface, ``fixed_ref``,
    ``use_aabb``, ``prefilter_m=4``, ``accept_tol=1.04``, df32 polish;
@@ -61,7 +75,13 @@ each on stdout:
    file to file (``scipy`` only) from an order-1 shell of 48 x 48 x 44 =
    101,376 hexes onto the 97,336 nodes of a 45 x 45 x 45 shell inside it,
    VP; first and warm, no missing point, the written values against the
-   plain path (rtol 1e-5) and the analytic field;
+   plain path (rtol 1e-5) and the analytic field; where ``click``
+   imports, ``python -m multimesh_tpu_torch.cli
+   interpolate-mesh-a-to-b`` in a subprocess on the same files, its
+   output file byte for byte the engine call's (else ``"click":
+   false``); then (``phase_native``) the native host runtime, built from
+   ``native/src/mmt_native.cpp``, against the plain path on a
+   20,000-point candidate scan;
 12. Exodus -> GLL (``phase_exodus_gll``): a 40 x 40 x 36 = 57,600-hex
    source written as an Exodus file and read back, onto the file path's
    GLL target (9,925,250 slots, read as f32), VP, VS, RHO, through
@@ -107,14 +127,27 @@ each on stdout:
    walls and exchange seconds; then, in this process, the routing owners
    of the first 262,144 points against the twin of K2 and rank 0's pass 1
    on its first 262,144 points against the plain path.
+16. the plotting entries (``phase_viz``, after ``phase_big``, on its
+   ``gll_big`` source): a depth slice of 1000 x 1000 lat/lon points at
+   1,000 km over the shell's own extent and a cross section of 201 radii
+   x 301 points at ``plot_cross_section``'s defaults between two points
+   inside it, through ``api.plot_depth_slice`` / ``plot_cross_section``
+   into a temporary directory where matplotlib imports, else through the
+   sampling and interpolation helpers those entries call
+   (``"matplotlib": false``); a warm-up and three timed calls each, K1's
+   launches, the share of points inside, the values inside < 1e-6
+   against ``smooth_field_torch`` and one chunk against the plain path.
 
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
 slice's run, as ``launches_file`` in the file path's df32 call, as
 ``launches_big`` in the grid route's df32 run, and as ``launches_exodus``,
 ``launches_exodus_gll``, ``launches_layered`` (its df32 call),
-``launches_points`` and ``launches_grid2d`` in phases 11-14 and
-``launches_sharded`` in (a) of phase 15; K1 also with
+``launches_points`` and ``launches_grid2d`` in phases 11-14,
+``launches_sharded`` in (a) of phase 15, ``launches_f64``,
+``launches_orders`` (the order-3 and order-6 transfers) and
+``launches_viz`` (the depth slice); ``orders``: per (order, dim) pair
+its ``ms``, ``group_ms``, ``kernel_ms`` and bound; K1 also with
 its order-1 times on the Exodus -> GLL path's first chunk
 (``*_order1_chunk``) and on rows spread over its source
 (``*_order1_sparse``),
@@ -138,6 +171,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -151,11 +185,11 @@ import torch.distributed as dist
 
 from multimesh_tpu_torch import (TransferOperator, _build, engine, hashing,
                                  testing, utils, utils_profile)
-from multimesh_tpu_torch.config import LocateConfig, Precision
+from multimesh_tpu_torch.config import PREFILTER_M, LocateConfig, Precision
 from multimesh_tpu_torch.io import exodus as eio
 from multimesh_tpu_torch.ops import dedup
 from multimesh_tpu_torch.search import locate as _locate
-from multimesh_tpu_torch.core import shape
+from multimesh_tpu_torch.core import gll, shape
 from multimesh_tpu_torch.search import grid, knn, nearest, newton, polish
 from multimesh_tpu_torch.dist import launch, sharding
 
@@ -179,6 +213,11 @@ FILE_PARAMS = ("VP", "VS", "RHO")
 # the gll_big source: 80 x 78 x 80 = 499,200 elements of order 4
 BIG_SHELL = dict(n_lat=80, n_lon=78, n_rad=80, order=4)
 N_BIG_KNN = 8_192  # rows of the grid_knn check (and of a rescue launch)
+# phase_orders: rows of each kernel's check per (order, dim) pair, and the
+# 3-D orders and targets of its transfers
+ORDER_ROWS = 65_536
+ORDER_TRANSFERS = (3, 6)
+ORDER_TARGETS = 1_000_000
 # Exodus -> Exodus (bench.py's ``exodus`` shape): 101,376 hexes, 97,336 nodes
 EXO_SRC = dict(n_lat=48, n_lon=48, n_rad=44, order=1)
 EXO_TGT = dict(n_lat=45, n_lon=45, n_rad=45, order=1, r_inner=3.7e6,
@@ -201,6 +240,18 @@ GRID_DEPTH = (-1.0e5, 3.0e6, 216)
 # bench.py's ``grid2d`` shape
 GRID2D_SRC = dict(shape=(24, 24), order=4, warp=0.05)
 GRID2D_N = 512
+# phase_viz on the gll_big source: a depth slice of VIZ_NUM^2 points over
+# the shell's own extent (colatitude 0.5..1.2 rad, longitude 0.3..1.4 rad,
+# in degrees) and a cross section at plot_cross_section's defaults between
+# two points inside it
+VIZ_PARAM = "VSV"
+VIZ_DEPTH_KM = 1000.0
+VIZ_NUM = 1000
+VIZ_LAT = (90.0 - float(np.rad2deg(1.2)), 90.0 - float(np.rad2deg(0.5)))
+VIZ_LON = (float(np.rad2deg(0.3)), float(np.rad2deg(1.4)))
+VIZ_XSEC = dict(point_1_lat=30.0, point_1_lng=25.0, point_2_lat=52.0,
+                point_2_lng=72.0)
+VIZ_NRADS, VIZ_NPOINTS, VIZ_MAX_DEPTH_KM = 201, 301, 2800.0
 # the sharded schemes' second part: ranks sharing the one card (gloo)
 SHARDED_RANKS = 2
 SHARDED_TIMEOUT_S = 300
@@ -308,6 +359,30 @@ def newton_bound(args, refs, res):
                  nbytes(points, ids, refs, res) + occur * per_elem)
 
 
+def ptxas_table(log):
+    """``nvcc -Xptxas -v``'s report per kernel instantiation, as
+    {"name order/dim": [registers, spill store bytes, spill load bytes,
+    static shared bytes]} (the grouping's kernels under their own names)."""
+    table, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '_Z\w*?(\d+)"
+                          r"([a-z_]+_kernel)(?:ILi(\d)ELi(\d)E)?", line)
+        if entry:
+            name = entry.group(2)
+            if entry.group(3):
+                name += f" {entry.group(3)}/{entry.group(4)}"
+            table[name] = [None, 0, 0, 0]
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            table[name][1:3] = nums
+        elif name and "Used" in line and "registers" in line:
+            table[name][0] = int(re.search(r"Used (\d+) registers",
+                                           line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            table[name][3] = int(smem.group(1)) if smem else 0
+    return table
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -320,10 +395,7 @@ def phase_device():
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    # registers / spills per kernel, for the record (stderr)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(line.strip(), file=sys.stderr)
+    emit({"phase": "ptxas", "kernels": ptxas_table(_build.build_log)})
     emit({"phase": "device", "nvidia_smi": smi,
           "gpu": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
@@ -379,103 +451,116 @@ def phase_nearest(dev, centroids, queries):
             "library_ms": None}
 
 
-def _newton_rows(mesh, pts, dev, seed):
-    """ROWS (point, element) rows: the nearest-centroid element of each
-    point, with 10% of the ids replaced by random elements."""
+def _newton_rows(mesh, pts, dev, seed, rows=ROWS):
+    """``rows`` (point, element) rows: the nearest-centroid element of
+    each point, with 10% of the ids replaced by random elements."""
     order, dim = mesh.order, mesh.dim
     prep = _locate._mesh_prep(mesh.points, order, dev)
-    p = torch.as_tensor(pts, device=dev)
+    p = torch.as_tensor(pts[:rows], device=dev)
     ids = nearest.nearest_centroid_ref(p, prep.centroids)
     rng = np.random.default_rng(seed)
-    wild = torch.as_tensor(rng.random(ROWS) < 0.1, device=dev)
-    rand = torch.as_tensor(rng.integers(0, mesh.nelem, ROWS, dtype=np.int32),
+    wild = torch.as_tensor(rng.random(rows) < 0.1, device=dev)
+    rand = torch.as_tensor(rng.integers(0, mesh.nelem, rows, dtype=np.int32),
                            device=dev)
     ids = torch.where(wild, rand, ids).contiguous()
     return (p, ids, prep.ctr, prep.inv_scale, prep.nodes, order, dim, ITERS,
             LocateConfig().newton_clamp)
 
 
+def extrapolation_tol(order, t):
+    """The bound on K1's converged refs against its twin's beyond the
+    element, up to |ref| ``t``: 1e-4 through order 4, and above it 1e-4
+    times the growth of the GLL Lebesgue function sum |l_i(t)| over its
+    order-4 value.  Outside [-1, 1] f32 rounding in x(ref) is amplified
+    by that sum (24 at order 4, 167 at 6, 439 at 7 for t = 1.5), so the
+    two summation orders part further there; inside the element
+    (accepted rows) both stay within 1e-5 at every order."""
+    ref = torch.tensor([t], dtype=torch.float64)
+
+    def growth(p):
+        return float(gll.lagrange_eval(p, ref).abs().sum())
+
+    return 1e-4 * max(1.0, growth(order) / growth(4))
+
+
+def _k1_case(mesh, args):
+    """K1 against its twin on ``args``, checked: acceptance agreement,
+    agreement on converged rows below |ref| ``fallback_max``, accepted
+    refs to 1e-5.  Returns (record, refs, residuals, max accepted ref
+    difference)."""
+    k_ref, k_res = newton.newton_rows(*args)
+    p_ref, p_res = newton.newton_refs_rows_ref(*args)
+    torch.cuda.synchronize()
+    kc, pc = k_res < CONV_TOL, p_res < CONV_TOL
+    ka = kc & (k_ref.abs().amax(-1) < ACCEPT_TOL)
+    pa = pc & (p_ref.abs().amax(-1) < ACCEPT_TOL)
+    acc_agree = float((ka == pa).double().mean())
+    # "usable": converged with max |ref| < fallback_max (1.5), the
+    # widest band any fallback reads refs from.  Beyond it (rows of
+    # random far elements) the f32 residual plateau grows with
+    # |ref|^order up to the threshold, so convergence there may flip
+    # with summation order: reported, not held to a bound.
+    fb_max = LocateConfig().fallback_max
+    k_mag, p_mag = k_ref.abs().amax(-1), p_ref.abs().amax(-1)
+    ku, pu = kc & (k_mag < fb_max), pc & (p_mag < fb_max)
+    usable_agree = float((ku == pu).double().mean())
+    conv_agree = float((kc == pc).double().mean())
+    both_a = ka & pa
+    both_c = kc & pc
+    tag = f"{mesh.order}/{mesh.dim}"
+    check(bool(both_a.any()), f"K1 {tag}: no row accepted")
+    diff = (k_ref - p_ref).abs().amax(-1)
+    err_acc = float(diff[both_a].max())
+    by_band = {}
+    for lo, hi in ((0.0, ACCEPT_TOL), (ACCEPT_TOL, fb_max), (fb_max, 4.0),
+                   (4.0, 9.0)):
+        sel = both_c & (p_mag >= lo) & (p_mag < hi)
+        by_band[f"{lo:g}-{hi:g}"] = [
+            int(sel.sum()), float(diff[sel].max()) if sel.any() else 0.0]
+    rec = {"rows": int(args[0].shape[0]),
+           "accepted": float(ka.double().mean()),
+           "accept_agree": acc_agree, "usable_agree": usable_agree,
+           "conv_agree": conv_agree, "max_abs_err_accepted": err_acc,
+           "converged_rows_and_max_err_by_ref": by_band}
+    check(acc_agree >= 0.9999, f"K1 {tag} acceptance agreement "
+          f"{acc_agree:.6f} < 0.9999")
+    check(usable_agree >= 0.9999, f"K1 {tag} agreement on converged "
+          f"rows below |ref| {fb_max} is {usable_agree:.6f} < 0.9999")
+    check(err_acc <= 1e-5, f"K1 {tag} accepted refs differ by "
+          f"{err_acc:.3g} > 1e-5")
+    near = by_band[f"{ACCEPT_TOL:g}-{fb_max:g}"][1]
+    near_tol = extrapolation_tol(mesh.order, fb_max)
+    rec["near_tol"] = near_tol
+    check(near <= near_tol, f"K1 {tag} converged refs below |ref| {fb_max} "
+          f"differ by {near:.3g} > {near_tol:.3g}")
+    return rec, k_ref, k_res, err_acc
+
+
 def phase_newton(dev, gll_mesh, gll_pts):
-    """K1 against its twin at the main path's orders and dims.  Returns
-    the kernels-line entry and, per case, (mesh, args, refs, res) for
-    phase 4."""
-    rng = np.random.default_rng(1)
-    box_pts = rng.uniform(0.0, 1.0, (ROWS, 2))
-    cases = [
-        (gll_mesh, gll_pts),
-        (testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=2), gll_pts),
-        (testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=1), gll_pts),
-        (testing.box_mesh(shape=(64, 64), order=2, warp=0.1), box_pts),
-        (testing.box_mesh(shape=(64, 64), order=1, warp=0.1), box_pts),
-        (testing.box_mesh(**GRID2D_SRC), box_pts),
-    ]
-    entry, solved = None, []
-    for i, (mesh, pts) in enumerate(cases):
-        args = _newton_rows(mesh, pts, dev, seed=10 + i)
-        k_ref, k_res = newton.newton_rows(*args)
-        solved.append((mesh, args, k_ref, k_res))
-        p_ref, p_res = newton.newton_refs_rows_ref(*args)
-        torch.cuda.synchronize()
-        kc, pc = k_res < CONV_TOL, p_res < CONV_TOL
-        ka = kc & (k_ref.abs().amax(-1) < ACCEPT_TOL)
-        pa = pc & (p_ref.abs().amax(-1) < ACCEPT_TOL)
-        acc_agree = float((ka == pa).double().mean())
-        # "usable": converged with max |ref| < fallback_max (1.5), the
-        # widest band any fallback reads refs from.  Beyond it (rows of
-        # random far elements) the f32 residual plateau grows with
-        # |ref|^order up to the threshold, so convergence there may flip
-        # with summation order: reported, not held to a bound.
-        fb_max = LocateConfig().fallback_max
-        k_mag, p_mag = k_ref.abs().amax(-1), p_ref.abs().amax(-1)
-        ku, pu = kc & (k_mag < fb_max), pc & (p_mag < fb_max)
-        usable_agree = float((ku == pu).double().mean())
-        conv_agree = float((kc == pc).double().mean())
-        both_a = ka & pa
-        both_c = kc & pc
-        check(bool(both_a.any()), f"K1 {mesh.order}/{mesh.dim}: no row "
-              "accepted")
-        diff = (k_ref - p_ref).abs().amax(-1)
-        err_acc = float(diff[both_a].max())
-        by_band = {}
-        for lo, hi in ((0.0, ACCEPT_TOL), (ACCEPT_TOL, fb_max), (fb_max, 4.0),
-                       (4.0, 9.0)):
-            sel = both_c & (p_mag >= lo) & (p_mag < hi)
-            by_band[f"{lo:g}-{hi:g}"] = [
-                int(sel.sum()), float(diff[sel].max()) if sel.any() else 0.0]
-        tag = f"{mesh.order}/{mesh.dim}"
-        emit({"phase": "K1", "order_dim": tag, "rows": ROWS,
-              "accepted": float(ka.double().mean()),
-              "accept_agree": acc_agree, "usable_agree": usable_agree,
-              "conv_agree": conv_agree, "max_abs_err_accepted": err_acc,
-              "converged_rows_and_max_err_by_ref": by_band})
-        check(acc_agree >= 0.9999, f"K1 {tag} acceptance agreement "
-              f"{acc_agree:.6f} < 0.9999")
-        check(usable_agree >= 0.9999, f"K1 {tag} agreement on converged "
-              f"rows below |ref| {fb_max} is {usable_agree:.6f} < 0.9999")
-        check(err_acc <= 1e-5, f"K1 {tag} accepted refs differ by "
-              f"{err_acc:.3g} > 1e-5")
-        near = by_band[f"{ACCEPT_TOL:g}-{fb_max:g}"][1]
-        check(near <= 1e-4, f"K1 {tag} converged refs below |ref| {fb_max} "
-              f"differ by {near:.3g} > 1e-4")
-        if i == 0:
-            ms = cuda_ms(lambda: newton.newton_rows(*args), 10)
-            group_ms = cuda_ms(
-                lambda: newton.group_rows(args[1], mesh.nelem), 10)
-            plain_ms = cuda_ms(lambda: newton.newton_refs_rows_ref(*args), 3)
-            bound_ms, bound_by = newton_bound(args, k_ref, k_res)
-            emit({"phase": "K1 time", "order_dim": tag, "rows": ROWS,
-                  "ms": ms, "group_ms": group_ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_share": bound_ms / ms})
-            entry = {"name": "newton_rows", "route": "cuda",
-                     "source": "multimesh_tpu_torch/csrc/newton_rows.cu",
-                     "replaces": "multimesh_tpu/search/pallas_newton.py:261",
-                     "max_abs_err": err_acc, "ms": ms, "group_ms": group_ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by,
-                     # no PyTorch call inverts a GLL map
-                     "library_ms": None}
-            entry.update(_prefilter_time(dev, mesh, args))
-    return entry, solved
+    """K1 against its twin at the main path's shape (4/3, ROWS rows),
+    timed, and its order-1 use as the scan's prefilter.  Returns the
+    kernels-line entry and (mesh, args, refs, res) for phase 4."""
+    args = _newton_rows(gll_mesh, gll_pts, dev, seed=10)
+    rec, k_ref, k_res, err_acc = _k1_case(gll_mesh, args)
+    emit({"phase": "K1", "order_dim": "4/3", **rec})
+    ms = cuda_ms(lambda: newton.newton_rows(*args), 10)
+    group_ms = cuda_ms(lambda: newton.group_rows(args[1], gll_mesh.nelem), 10)
+    plain_ms = cuda_ms(lambda: newton.newton_refs_rows_ref(*args), 3)
+    bound_ms, bound_by = newton_bound(args, k_ref, k_res)
+    emit({"phase": "K1 time", "order_dim": "4/3", "rows": ROWS,
+          "ms": ms, "group_ms": group_ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_share": bound_ms / ms})
+    entry = {"name": "newton_rows", "route": "cuda",
+             "source": "multimesh_tpu_torch/csrc/newton_rows.cu",
+             "replaces": "multimesh_tpu/search/pallas_newton.py:261",
+             "max_abs_err": err_acc, "ms": ms, "group_ms": group_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by,
+             # no PyTorch call inverts a GLL map
+             "library_ms": None}
+    entry.update(_prefilter_time(dev, gll_mesh, args))
+    return entry, (gll_mesh, args, k_ref, k_res)
+
 
 
 def _prefilter_time(dev, mesh, args):
@@ -543,80 +628,86 @@ def _prefilter_time(dev, mesh, args):
             "plain_ms_order1": plain_ms, "bound_ms_order1": bound_ms}
 
 
+def _k4_case(dev, mesh, args, k_ref, k_res, seed):
+    """K4 against its twin, checked: warm starts are the accepted K1
+    solves ``k_ref`` of ``args`` (cycled to as many rows), one step as
+    the main path runs it; and known refs recovered from the points they
+    map to.  Returns (record, the polish's arguments, its outputs, their
+    largest pair-ref difference from the twin's)."""
+    order, dim = mesh.order, mesh.dim
+    n = args[0].shape[0]
+    prep = _locate._mesh_prep(mesh.points, order, dev, want64=True)
+    acc = torch.nonzero((k_res < CONV_TOL)
+                        & (k_ref.abs().amax(-1) < ACCEPT_TOL)).squeeze(1)
+    rows = acc[torch.arange(n, device=dev) % acc.shape[0]]
+    pargs = (args[0][rows].contiguous(), args[1][rows].contiguous(),
+             k_ref[rows].contiguous(), prep.ctr, prep.inv_scale,
+             prep.nodes64, order, dim, DF32_CFG.df32_polish_iters)
+    hi, lo, ok = polish.polish_pairs(*pargs)
+    p_hi, p_lo, p_ok = polish.polish_pairs_ref(*pargs)
+    torch.cuda.synchronize()
+    ok_agree = float((ok == p_ok).double().mean())
+    both = ok & p_ok
+    diff = float(((hi.double() + lo.double())
+                  - (p_hi.double() + p_lo.double()))[both].abs().max())
+    # known refs: the points they map to, warm starts 3e-6 off
+    rng = np.random.default_rng(seed)
+    refs = torch.as_tensor(rng.uniform(-0.95, 0.95, (n, dim)), device=dev)
+    ids = torch.as_tensor(rng.integers(0, mesh.nelem, n, dtype=np.int32),
+                          device=dev)
+    pts = shape.forward_map(
+        order, torch.as_tensor(mesh.points, device=dev)[ids.long()],
+        refs).contiguous()
+    ref0 = (refs + torch.as_tensor(rng.uniform(-3e-6, 3e-6, (n, dim)),
+                                   device=dev)).float().contiguous()
+    t_hi, t_lo, t_ok = polish.polish_pairs(pts, ids, ref0, *pargs[3:])
+    true_err = float((t_hi.double() + t_lo.double() - refs).abs().max())
+    tag = f"{order}/{dim}"
+    rec = {"rows": n, "distinct_rows": int(acc.shape[0]),
+           "ok": float(ok.double().mean()), "ok_agree": ok_agree,
+           "max_abs_diff_vs_twin": diff, "known_refs_max_err": true_err,
+           "known_refs_ok": float(t_ok.double().mean())}
+    check(ok_agree >= 0.9999, f"K4 {tag} ok agreement {ok_agree:.6f}")
+    check(diff <= 1e-11, f"K4 {tag} hi+lo differ by {diff:.3g}")
+    check(bool(t_ok.all()), f"K4 {tag} known refs not all ok")
+    check(true_err < 1e-10, f"K4 {tag} known refs err {true_err:.3g}")
+    return rec, pargs, (hi, lo, ok), diff
+
+
+def _polish_bound(pargs, outs):
+    """K4's bound: per row and step, x and J of d components by sum
+    factorisation, 2 FLOP an FMA, in f64; the rows' and elements' bytes
+    once.  Also the direct form's, for comparison: per node d + 1 weight
+    products and d (d + 1) FMAs.  (bound_ms, bound_by, direct bound_ms)"""
+    order, dim, iters = pargs[6], pargs[7], pargs[8]
+    rows_n, io = pargs[0].shape[0], nbytes(*pargs[:6], *outs)
+    flop = 2 * iters * dim * sumfact_fmas(order, dim, True) * rows_n
+    direct = (iters * (order + 1) ** dim
+              * (2 * dim * (dim + 1) + dim + 1) * rows_n)
+    return (*bound(flop, PEAK_F64, io), bound(direct, PEAK_F64, io)[0])
+
+
 def phase_polish(dev, solved):
-    """K4 against its twin: warm starts are the accepted K1 solves of
-    phase 3 (cycled to ROWS rows), one step as the main path runs it; and
-    known refs recovered from the points they map to."""
-    entry = None
-    for i, (mesh, args, k_ref, k_res) in enumerate(solved):
-        order, dim = mesh.order, mesh.dim
-        prep = _locate._mesh_prep(mesh.points, order, dev, want64=True)
-        acc = torch.nonzero((k_res < CONV_TOL)
-                            & (k_ref.abs().amax(-1) < ACCEPT_TOL)).squeeze(1)
-        rows = acc[torch.arange(ROWS, device=dev) % acc.shape[0]]
-        pargs = (args[0][rows].contiguous(), args[1][rows].contiguous(),
-                 k_ref[rows].contiguous(), prep.ctr, prep.inv_scale,
-                 prep.nodes64, order, dim, DF32_CFG.df32_polish_iters)
-        hi, lo, ok = polish.polish_pairs(*pargs)
-        p_hi, p_lo, p_ok = polish.polish_pairs_ref(*pargs)
-        torch.cuda.synchronize()
-        ok_agree = float((ok == p_ok).double().mean())
-        both = ok & p_ok
-        diff = float(((hi.double() + lo.double())
-                      - (p_hi.double() + p_lo.double()))[both].abs().max())
-        # known refs: the points they map to, warm starts 3e-6 off
-        rng = np.random.default_rng(30 + i)
-        refs = torch.as_tensor(rng.uniform(-0.95, 0.95, (ROWS, dim)),
-                               device=dev)
-        ids = torch.as_tensor(rng.integers(0, mesh.nelem, ROWS,
-                                           dtype=np.int32), device=dev)
-        pts = shape.forward_map(
-            order, torch.as_tensor(mesh.points, device=dev)[ids.long()],
-            refs).contiguous()
-        ref0 = (refs + torch.as_tensor(rng.uniform(-3e-6, 3e-6, (ROWS, dim)),
-                                       device=dev)).float().contiguous()
-        t_hi, t_lo, t_ok = polish.polish_pairs(
-            pts, ids, ref0, *pargs[3:])
-        true_err = float((t_hi.double() + t_lo.double() - refs).abs().max())
-        tag = f"{order}/{dim}"
-        rec = {"phase": "K4", "order_dim": tag, "rows": ROWS,
-               "distinct_rows": int(acc.shape[0]), "ok": float(
-                   ok.double().mean()), "ok_agree": ok_agree,
-               "max_abs_diff_vs_twin": diff, "known_refs_max_err": true_err,
-               "known_refs_ok": float(t_ok.double().mean())}
-        if i == 0:
-            rec.update(_grouped_times(polish.polish_pairs,
-                                      polish._polish_kernel, pargs,
-                                      pargs[1], mesh.nelem))
-            rec["plain_ms"] = cuda_ms(
-                lambda: polish.polish_pairs_ref(*pargs), 3)
-            # per row and step, x and J of d components by sum
-            # factorisation, 2 FLOP an FMA, in f64
-            rows_n, io = pargs[0].shape[0], nbytes(*pargs[:6], hi, lo, ok)
-            flop = 2 * pargs[8] * dim * sumfact_fmas(order, dim, True) * rows_n
-            bound_ms, bound_by = bound(flop, PEAK_F64, io)
-            # the direct form, for comparison: per node d + 1 weight
-            # products and d (d + 1) FMAs
-            direct = (pargs[8] * (order + 1) ** dim
-                      * (2 * dim * (dim + 1) + dim + 1) * rows_n)
-            rec.update(bound_ms=bound_ms, bound_share=bound_ms / rec["ms"],
-                       bound_ms_direct=bound(direct, PEAK_F64, io)[0])
-            entry = {"name": "polish_pairs", "route": "cuda",
-                     "source": "multimesh_tpu_torch/csrc/polish_pairs.cu",
-                     "replaces": "multimesh_tpu/search/pallas_df32.py:318",
-                     "max_abs_err": diff, "ms": rec["ms"],
-                     "group_ms": rec["group_ms"],
-                     "kernel_ms": rec["kernel_ms"],
-                     "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
-                     "bound_by": bound_by,
-                     # no PyTorch call takes a Newton step of a GLL map
-                     "library_ms": None}
-        emit(rec)
-        check(ok_agree >= 0.9999, f"K4 {tag} ok agreement {ok_agree:.6f}")
-        check(diff <= 1e-11, f"K4 {tag} hi+lo differ by {diff:.3g}")
-        check(bool(t_ok.all()), f"K4 {tag} known refs not all ok")
-        check(true_err < 1e-10, f"K4 {tag} known refs err {true_err:.3g}")
-    return entry
+    """K4 against its twin at the main path's shape (4/3, ROWS rows),
+    timed."""
+    mesh, args, k_ref, k_res = solved
+    rec, pargs, outs, diff = _k4_case(dev, mesh, args, k_ref, k_res, seed=30)
+    rec.update(_grouped_times(polish.polish_pairs, polish._polish_kernel,
+                              pargs, pargs[1], mesh.nelem))
+    rec["plain_ms"] = cuda_ms(lambda: polish.polish_pairs_ref(*pargs), 3)
+    bound_ms, bound_by, direct_ms = _polish_bound(pargs, outs)
+    rec.update(bound_ms=bound_ms, bound_share=bound_ms / rec["ms"],
+               bound_ms_direct=direct_ms)
+    emit({"phase": "K4", "order_dim": "4/3", **rec})
+    return {"name": "polish_pairs", "route": "cuda",
+            "source": "multimesh_tpu_torch/csrc/polish_pairs.cu",
+            "replaces": "multimesh_tpu/search/pallas_df32.py:318",
+            "max_abs_err": diff, "ms": rec["ms"],
+            "group_ms": rec["group_ms"], "kernel_ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no PyTorch call takes a Newton step of a GLL map
+            "library_ms": None}
 
 
 def _grouped_times(wrapper, kernel, args, ids, E):
@@ -632,13 +723,14 @@ def _grouped_times(wrapper, kernel, args, ids, E):
 def _apply_args(dev, src, fields, rows, seed):
     """Random pair refs in random elements (every 16th row element -1)."""
     rng = np.random.default_rng(seed)
-    refs = torch.as_tensor(rng.uniform(-1.0, 1.0, (rows, 3)), device=dev)
+    refs = torch.as_tensor(rng.uniform(-1.0, 1.0, (rows, src.dim)),
+                           device=dev)
     hi = refs.float()
     lo = (refs - hi.double()).float()
     el = torch.as_tensor(rng.integers(0, src.nelem, rows, dtype=np.int32),
                          device=dev)
     el[::16] = -1
-    return (hi, lo, el, fields, src.order, 3)
+    return (hi, lo, el, fields, src.order, src.dim)
 
 
 def _apply_bound(args, out, direct=False):
@@ -701,6 +793,111 @@ def phase_apply(dev, src, fields):
             "bound_ms_1m": bound_1m,
             # a gather and an einsum at least: no single call
             "library_ms": None}
+
+
+
+def _order_mesh(order, dim):
+    """The mesh of an (order, dim) pair in ``phase_orders``: the ``gll``
+    shell at that order in 3-D; in 2-D a warped 64 x 64 box, or at 4/2
+    ``bench.py``'s ``grid2d`` source."""
+    if dim == 3:
+        return testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=order)
+    if order == 4:
+        return testing.box_mesh(**GRID2D_SRC)
+    return testing.box_mesh(shape=(64, 64), order=order, warp=0.1)
+
+
+def _orders_pair(dev, order, dim, pts3, pts2):
+    """K1, K4 and K5 against their twins at one (order, dim) pair on
+    ORDER_ROWS rows, with their times (the wrapper's ``ms``, the
+    grouping's ``group_ms``, the kernel's ``kernel_ms``) and bounds."""
+    mesh = _order_mesh(order, dim)
+    seed = 100 + 10 * order + dim
+    args = _newton_rows(mesh, pts3 if dim == 3 else pts2, dev, seed,
+                        rows=ORDER_ROWS)
+    rec1, k_ref, k_res, _ = _k1_case(mesh, args)
+    rec1.update(_grouped_times(newton.newton_rows, newton._newton_kernel,
+                               args, args[1], mesh.nelem))
+    rec1["bound_ms"], rec1["bound_by"] = newton_bound(args, k_ref, k_res)
+    rec4, pargs, outs, _ = _k4_case(dev, mesh, args, k_ref, k_res, seed)
+    rec4.update(_grouped_times(polish.polish_pairs, polish._polish_kernel,
+                               pargs, pargs[1], mesh.nelem))
+    rec4["bound_ms"], rec4["bound_by"], _ = _polish_bound(pargs, outs)
+    base = testing.element_nodal_field(mesh, "smooth")
+    fields = torch.as_tensor(np.stack([base * (1 + 0.1 * i)
+                                       for i in range(3)]), device=dev)
+    aargs = _apply_args(dev, mesh, fields, ORDER_ROWS, seed)
+    rel, zeros, _, got = _apply_rel(aargs)
+    rec5 = {"rows": ORDER_ROWS, "params": 3, "max_rel_diff": rel,
+            "missing_rows_zero": zeros,
+            **_grouped_times(polish.apply_pairs, polish._apply_kernel,
+                             aargs, aargs[2], mesh.nelem)}
+    rec5["bound_ms"], rec5["bound_by"] = _apply_bound(aargs, got)
+    tag = f"{order}/{dim}"
+    check(rel <= 1e-12, f"K5 {tag} values differ by {rel:.3g} relative")
+    check(zeros, f"K5 {tag} element -1 did not give 0")
+    for rec in (rec1, rec4, rec5):
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    return {"K1": rec1, "K4": rec4, "K5": rec5}
+
+
+def phase_orders(dev, smi, gll_pts, pts_d, truth):
+    """Every (order, dim) pair the kernels are built for: K1, K4 and K5
+    against their twins on ORDER_ROWS rows each (see ``_orders_pair``);
+    then ``TransferOperator.build`` + ``apply`` at orders 3 and 6 in 3-D
+    on the ``gll`` shell at that order, the first ORDER_TARGETS targets
+    of the slice, 3 parameters, on the f32 path and with the df32 polish
+    (K4, K5): the polished values < 1e-6 against the analytic field, the
+    f32 ones within 2e-6 of them.  Returns {pair: records} and the
+    polished transfers' launch counts."""
+    rng = np.random.default_rng(1)
+    pts2 = rng.uniform(0.0, 1.0, (ORDER_ROWS, 2))
+    pairs = {}
+    for order in newton.ORDERS:
+        for dim in (3, 2):
+            tag = f"{order}/{dim}"
+            pairs[tag] = _orders_pair(dev, order, dim, gll_pts, pts2)
+            emit({"phase": "orders", "order_dim": tag, **pairs[tag]})
+    launches = {}
+    for order in ORDER_TRANSFERS:
+        src = testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=order)
+        base = testing.element_nodal_field(src, "smooth")
+        fields = torch.as_tensor(np.stack([base * (1 + 0.1 * i)
+                                           for i in range(3)]), device=dev)
+        targets = pts_d[:ORDER_TARGETS]
+        rec = {}
+        for name, cfg in (("f32", SLICE_CFG), ("df32", DF32_CFG)):
+            run_transfer(src, targets, fields, cfg, dev, fallback="snap")
+            reset_launches()
+            t0 = time.perf_counter()
+            op, vals, build_s, apply_s = run_transfer(
+                src, targets, fields, cfg, dev, fallback="snap")
+            wall = time.perf_counter() - t0
+            rec[name] = {"wall_s": wall, "build_s": build_s,
+                         "apply_s": apply_s, "n_retry": op.n_retry,
+                         "num_missing": op.num_missing,
+                         "launches": read_launches(),
+                         "max_rel_err_columns": max_rel_columns(
+                             vals, truth[:ORDER_TARGETS])}
+            rec[name]["vals"] = vals
+        f32_vs_df32 = max_rel(rec["f32"].pop("vals"),
+                              rec["df32"].pop("vals"))
+        launches[str(order)] = rec["df32"]["launches"]
+        emit({"phase": "orders transfer", "nvidia_smi": smi,
+              "order": order, "elements": src.nelem,
+              "targets": ORDER_TARGETS, "params": 3, **rec,
+              "f32_max_rel_diff_vs_df32": f32_vs_df32})
+        ran = rec["df32"]["launches"]
+        check(ran["newton_rows"] > 0 and ran["polish_pairs"] > 0
+              and ran["apply_pairs"] > 0, f"order {order}: launches {ran}")
+        rels = rec["df32"]["max_rel_err_columns"]
+        check(max(rels) < 1e-6, f"order {order} transfer max rel errs "
+              f"{rels} >= 1e-6")
+        # f32 refs: values within f32 grade of the polished ones (the
+        # order-4 slice's f32 path is within 7.3e-7 of its field)
+        check(f32_vs_df32 < 2e-6, f"order {order}: f32 values differ from "
+              f"the polished ones by {f32_vs_df32:.3g}")
+    return pairs, launches
 
 
 def run_scan(src, targets, dev):
@@ -819,6 +1016,80 @@ def phase_df32_slice(dev, src, pts_d, fields, truth):
     check(f_op.refs.dtype == torch.float64, "f64_polish refs not f64")
     check(f_rel < 1e-8, f"f64_polish max rel err {f_rel:.3g} >= 1e-8")
     return launches
+
+
+
+def phase_f64(dev, smi, src, pts_d, fields, truth):
+    """``Precision.F64`` on the slice's first ROWS targets: f64 refs, the
+    3 columns within 1e-8 of their analytic fields, and the operator and
+    values bit for bit those of the same call with ``f64_polish=True``.
+    Returns its launch counts."""
+    targets = pts_d[:ROWS]
+    f64_cfg = dataclasses.replace(SLICE_CFG, precision=Precision.F64)
+    pol_cfg = dataclasses.replace(SLICE_CFG, f64_polish=True)
+    run_transfer(src, targets, fields, f64_cfg, dev, fallback="snap")
+    reset_launches()
+    op, vals, build_s, apply_s = run_transfer(src, targets, fields, f64_cfg,
+                                              dev, fallback="snap")
+    launches = read_launches()
+    pop, pvals, _, _ = run_transfer(src, targets, fields, pol_cfg, dev,
+                                    fallback="snap")
+    rels = max_rel_columns(vals, truth[:ROWS])
+    same = (torch.equal(op.elements, pop.elements)
+            and torch.equal(op.refs, pop.refs)
+            and torch.equal(vals, pvals))
+    emit({"phase": "f64", "nvidia_smi": smi, "targets": ROWS,
+          "build_s": build_s, "apply_s": apply_s,
+          "refs_dtype": str(op.refs.dtype), "launches": launches,
+          "max_rel_err_columns": rels, "bit_equal_f64_polish": same})
+    check(op.refs.dtype == torch.float64 and vals.dtype == torch.float64,
+          f"F64 refs {op.refs.dtype}, values {vals.dtype}")
+    check(max(rels) < 1e-8, f"F64 max rel errs {rels} >= 1e-8")
+    check(same, "F64 differs from f64_polish=True")
+    check(launches["newton_rows"] > 0 and launches["nearest_centroid"] > 0,
+          f"F64 launches {launches}")
+    return launches
+
+
+def phase_native(dev, smi):
+    """The native host runtime (``multimesh_tpu_torch.native``), built
+    here from ``native/src/mmt_native.cpp``, against the port's plain path
+    on the card: a candidate-scan ``locate`` of 20,000 points inside a
+    warped order-2 box on the same 6 candidates, ``Precision.F64``;
+    elements equal where both accept, refs and weights within 1e-12."""
+    from multimesh_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.bindings.build()
+    build_s = time.perf_counter() - t0
+    mesh = testing.box_mesh(shape=(12, 12, 12), order=2, warp=0.1)
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(0.0, 1.0, (20_000, 3))
+    cand = knn.knn(torch.as_tensor(mesh.centroids(), device=dev),
+                   torch.as_tensor(pts, device=dev), 6)[1]
+    el, refs, w, failed = native.locate(
+        pts, cand.cpu().numpy().astype(np.int64), mesh.points, 2,
+        rtol=1e-14)
+    res = _locate.locate(pts, mesh.points, 2,
+                         LocateConfig(precision=Precision.F64,
+                                      nelem_to_search=6),
+                         candidates=cand, strategy="scan", device=dev,
+                         plain=True)
+    t_el = res.elements.cpu().numpy()
+    both = (el >= 0) & res.accepted.cpu().numpy()
+    agree = float((el[both] == t_el[both]).mean())
+    same = both & (el == t_el)
+    ref_err = float(np.abs(refs[same] - res.refs.cpu().numpy()[same]).max())
+    w_err = float(np.abs(w[same] - res.weights.cpu().numpy()[same]).max())
+    emit({"phase": "native", "nvidia_smi": smi, "library": path.name,
+          "build_s": build_s, "points": pts.shape[0],
+          "native_failed": failed, "both_accepted": float(both.mean()),
+          "elements_agree": agree, "max_abs_ref_diff": ref_err,
+          "max_abs_weight_diff": w_err})
+    check(both.mean() > 0.99, f"native / plain accepted {both.mean():.4f}")
+    check(agree >= 0.999, f"native elements agree {agree:.6f}")
+    check(ref_err <= 1e-12 and w_err <= 1e-12,
+          f"native refs / weights differ by {ref_err:.3g} / {w_err:.3g}")
 
 
 def lifted_targets(pts):
@@ -1149,6 +1420,129 @@ def big_source():
     return src, fields, time.perf_counter() - t0
 
 
+
+def _viz_check(dev, mesh, xyz, vals, rows):
+    """The interpolated plot values ``vals`` (flat, host) at the points
+    ``xyz`` [N, 3]: the share of points inside (a value), the largest
+    relative error there against ``smooth_field_torch`` on the card, and
+    the ``rows`` slice against the plain path (the entry's locate
+    configuration, ``plain=True``): found agreement and the largest
+    relative difference where both found a value."""
+    pts = torch.as_tensor(xyz, device=dev)
+    truth = testing.smooth_field_torch(pts)
+    got = torch.as_tensor(vals, device=dev)
+    inside = got != 0
+    rel = float(((got - truth).abs() / truth.abs())[inside].max())
+    op = TransferOperator.build(
+        mesh.points, pts[rows], order=4, cfg=LocateConfig(),
+        fallback="sentinel", prefilter_m=PREFILTER_M, device=dev, plain=True)
+    p_vals = op.apply(torch.as_tensor(
+        mesh.element_nodal_fields[VIZ_PARAM], device=dev))
+    both = inside[rows] & (p_vals != 0)
+    return {"points": int(xyz.shape[0]),
+            "share_inside": float(inside.double().mean()),
+            "max_rel_err_inside": rel,
+            "plain_rows": int(p_vals.shape[0]),
+            "plain_found_agree": float(
+                (inside[rows] == (p_vals != 0)).double().mean()),
+            "plain_max_rel_diff": float(
+                ((got[rows] - p_vals).abs() / p_vals.abs())[both].max())}
+
+
+def phase_viz(dev, smi, big):
+    """The plotting entries on the ``gll_big`` source (see the module
+    docstring): a 1000 x 1000 depth slice and a 201 x 301 cross section,
+    each through ``api.plot_depth_slice`` / ``api.plot_cross_section``
+    into a temporary directory where matplotlib imports, else through the
+    sampling and interpolation helpers those entries call; a warm-up and
+    three timed calls each, K1's launches, the share of points inside,
+    the values inside against the analytic field and one chunk against
+    the plain path.  Returns the depth slice's launch counts."""
+    from multimesh_tpu_torch import api
+    from multimesh_tpu_torch.viz import plotter
+
+    src, fields_h, _ = big
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    base = fields_h[0]  # the smooth field at every node
+    slice_mesh = types.SimpleNamespace(
+        points=src.points, element_nodal_fields={VIZ_PARAM: base})
+    # the cross section sphere-maps its mesh in place (make_spherical),
+    # so it gets a writable lattice, as a user's mesh object holds one
+    xsec_mesh = types.SimpleNamespace(
+        points=src.points.copy(), element_nodal_fields={
+            VIZ_PARAM: base,
+            "z_node_1D": np.linalg.norm(src.points, axis=-1) / 6.371e6})
+    xsec_args = (*VIZ_XSEC.values(), VIZ_MAX_DEPTH_KM, 0.0, VIZ_NRADS,
+                 VIZ_NPOINTS)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        def depth_slice():
+            if have_mpl:
+                return api.plot_depth_slice(
+                    mesh=slice_mesh, depth_in_km=VIZ_DEPTH_KM, num=VIZ_NUM,
+                    lat_extent=VIZ_LAT, lon_extent=VIZ_LON,
+                    parameter_to_plot=VIZ_PARAM, savefig=True,
+                    figname=os.path.join(tmpdir, "slice.png"), device=dev)
+            return plotter._depth_slice_values(
+                slice_mesh, VIZ_DEPTH_KM, VIZ_NUM, VIZ_LAT, VIZ_LON,
+                VIZ_PARAM, dev)
+
+        def cross_section():
+            if have_mpl:
+                return api.plot_cross_section(
+                    mesh=xsec_mesh, **VIZ_XSEC,
+                    max_depth_in_km=VIZ_MAX_DEPTH_KM, nrads=VIZ_NRADS,
+                    npoints=VIZ_NPOINTS,
+                    filename=os.path.join(tmpdir, "xsec.png"),
+                    param_to_interp=VIZ_PARAM, device=dev)
+            pts, _ = plotter._cross_section_points(*xsec_args)
+            return plotter._cross_section_values(
+                xsec_mesh, pts, VIZ_NRADS, VIZ_NPOINTS, VIZ_PARAM, dev)
+
+        for name, fn in (("depth_slice", depth_slice),
+                         ("cross_section", cross_section)):
+            _host_s(fn)  # warm-up: prep, index, caches
+            reset_launches()
+            walls = [_host_s(fn)[1]]
+            launches = read_launches()
+            walls += [_host_s(fn)[1] for _ in range(2)]
+            median, spread = _median_spread(walls)
+            out[name] = {"walls_s": walls, "wall_median_s": median,
+                         "wall_spread_s": spread, "launches": launches}
+            check(launches["newton_rows"] > 0,
+                  f"{name}: K1 not launched ({launches})")
+        if have_mpl:
+            check(os.path.getsize(os.path.join(tmpdir, "slice.png")) > 1000
+                  and os.path.getsize(os.path.join(tmpdir, "xsec.png"))
+                  > 1000, "the plots were not written")
+
+    # the values each plot holds, checked once
+    ll = plotter._create_depthslice(VIZ_DEPTH_KM * 1000.0, VIZ_NUM, VIZ_LAT,
+                                    VIZ_LON)
+    vals = plotter._depth_slice_values(slice_mesh, VIZ_DEPTH_KM, VIZ_NUM,
+                                       VIZ_LAT, VIZ_LON, VIZ_PARAM, dev)
+    out["depth_slice"].update(_viz_check(
+        dev, slice_mesh, utils.latlondepth_to_xyz(ll), vals.ravel(),
+        slice(0, ROWS)))
+    pts, _ = plotter._cross_section_points(*xsec_args)
+    vals = plotter._cross_section_values(xsec_mesh, pts, VIZ_NRADS,
+                                         VIZ_NPOINTS, VIZ_PARAM, dev)
+    out["cross_section"].update(_viz_check(
+        dev, xsec_mesh, pts, vals.ravel(), slice(0, pts.shape[0])))
+    emit({"phase": "viz", "nvidia_smi": smi, "matplotlib": have_mpl,
+          "elements": src.nelem, **out})
+    for name, rec in out.items():
+        check(rec["share_inside"] > 0.9, f"{name}: {rec['share_inside']:.4f} "
+              "of the points inside")
+        check(rec["max_rel_err_inside"] < 1e-6, f"{name}: max rel err "
+              f"{rec['max_rel_err_inside']:.3g} >= 1e-6")
+        check(rec["plain_found_agree"] >= 0.999, f"{name}: found agreement "
+              f"with the plain path {rec['plain_found_agree']:.6f}")
+        check(rec["plain_max_rel_diff"] <= 1e-5, f"{name}: values differ "
+              f"from the plain path by {rec['plain_max_rel_diff']:.3g}")
+    return out["depth_slice"]["launches"]
+
+
 def _host_s(fn):
     """(result, wall seconds) of ``fn()``, the device synchronised."""
     t0 = time.perf_counter()
@@ -1444,6 +1838,33 @@ def _rel_np(got, truth):
     return float(np.max(np.abs(got - truth) / np.abs(truth)))
 
 
+
+def _cli_exodus(f_a, f_b0, f_b, tmpdir):
+    """Where ``click`` imports: ``python -m multimesh_tpu_torch.cli
+    interpolate-mesh-a-to-b`` in a subprocess (device ``cuda``, the
+    default) onto a fresh copy of the target; its output file must equal
+    ``engine.exodus_2_exodus``'s ``f_b`` byte for byte.  Returns the
+    line's fields."""
+    if importlib.util.find_spec("click") is None:
+        return {"click": False}
+    f_cli = os.path.join(tmpdir, "exo_b_cli.e")
+    shutil.copyfile(f_b0, f_cli)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "multimesh_tpu_torch.cli",
+         "interpolate-mesh-a-to-b", "--mesh_a", f_a, "--mesh_b", f_cli,
+         "--params", "VP"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with open(f_cli, "rb") as a, open(f_b, "rb") as b:
+        same = a.read() == b.read()
+    check(same, "the CLI's output file differs from exodus_2_exodus's")
+    return {"click": True, "cli_wall_s": wall, "cli_file_bit_equal": same}
+
+
 def phase_exodus(dev, smi, tmpdir):
     """Exodus -> Exodus, file to file (see the module docstring).  Returns
     the launch counts of the first call."""
@@ -1467,6 +1888,7 @@ def phase_exodus(dev, smi, tmpdir):
     walls = [run() for _ in range(3)]
     got = eio.Exodus(f_b).get_nodal_field("VP")
     truth = testing.smooth_field(tgt.vertices)
+    cli = _cli_exodus(f_a, f_b0, f_b, tmpdir)
     rel = _rel_np(got, truth)
     check(got.shape == (tgt.vertices.shape[0],) and np.isfinite(got).all(),
           f"written VP {got.shape}")
@@ -1494,7 +1916,7 @@ def phase_exodus(dev, smi, tmpdir):
           "num_missing_plain": p_op.num_missing,
           "max_rel_err_vs_analytic": rel,
           "plain_max_rel_err_vs_analytic": p_rel,
-          "plain_max_rel_diff": vdiff})
+          "plain_max_rel_diff": vdiff, **cli})
     check(p_op.num_missing == 0, "the plain path left a node unassigned")
     # a trilinear source: the error is its discretisation's, so it is held
     # to the plain path's, and both to the reference's 5e-3
@@ -2324,12 +2746,14 @@ def main():
     centroids = torch.as_tensor(src.points.mean(axis=1), device=dev)
     truth = torch.as_tensor(testing.smooth_field(pts), device=dev)
     k2 = phase_nearest(dev, centroids, pts_d[:ROWS])
-    k1, solved = phase_newton(dev, src, pts[:ROWS])
+    k1, solved = phase_newton(dev, src, pts)
     k4 = phase_polish(dev, solved)
     del solved
     k5 = phase_apply(dev, src, fields)
+    orders, launches_orders = phase_orders(dev, smi, pts, pts_d, truth)
     launches_slice = phase_slice(dev, src, pts_d, fields, truth)
     launches = phase_df32_slice(dev, src, pts_d, fields, truth)
+    launches_f64 = phase_f64(dev, smi, src, pts_d, fields, truth)
     order1 = phase_flagship(dev, src, pts, fields)
     del pts, pts_d, fields
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -2343,6 +2767,7 @@ def main():
         del tgt
         clear_caches()
         launches_exo = phase_exodus(dev, smi, tmpdir)
+    phase_native(dev, smi)
     clear_caches()
     launches_layered = phase_layered(dev, smi)
     clear_caches()
@@ -2358,6 +2783,9 @@ def main():
         dev, smi, big,
         torch.as_tensor(testing.shell_targets(N_TARGETS, seed=0), device=dev),
         truth)
+    del truth
+    clear_caches()
+    launches_viz = phase_viz(dev, smi, big)
 
     # launches of the df32 slice's run, of the file path's df32 call, of
     # the grid route's df32 run and of the pipelines' phases (the layered
@@ -2373,7 +2801,17 @@ def main():
         entry["launches_points"] = launches_points[name]
         entry["launches_grid2d"] = launches_2d[name]
         entry["launches_sharded"] = launches_sharded[name]
+        entry["launches_f64"] = launches_f64[name]
+        entry["launches_viz"] = launches_viz[name]
+        entry["launches_orders"] = {o: n[name]
+                                    for o, n in launches_orders.items()}
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    # every order/dim pair of K1, K4 and K5, ORDER_ROWS rows each
+    for entry, key in ((k1, "K1"), (k4, "K4"), (k5, "K5")):
+        entry["orders"] = {
+            tag: {f: rec[key][f] for f in ("ms", "group_ms", "kernel_ms",
+                                           "bound_ms", "bound_by")}
+            for tag, rec in orders.items()}
     k1["launches_order1"] = order1
     print(smi, flush=True)
     emit({"kernels": [k1, k2, k4, k5]})

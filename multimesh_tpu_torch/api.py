@@ -5,9 +5,8 @@ Same function names, signatures, and defaults as the JAX package's facade
 including the wall-clock timing print after each call (reference
 api.py:50-57 pattern) and lazy imports of the engine, so ``h5py`` only
 loads when an HDF5 entry point is called.  Every entry runs on ``device``
-(None means ``cuda``).  The ten non-plotting entries are here; the three
-plotting ones (``plot_depth_slice``, ``plot_cross_section``,
-``find_good_projection``) are not ported.
+(None means ``cuda``).  All thirteen entries are here; the three plotting
+ones need matplotlib only when they draw (``viz.plotter``).
 """
 from __future__ import annotations
 
@@ -261,6 +260,122 @@ def interpolate_to_mesh(
     from .engine import interpolate_to_mesh as _impl
 
     return _impl(old_mesh, new_mesh, params_to_interp, device=device)
+
+
+def plot_depth_slice(
+    mesh,
+    depth_in_km: float,
+    num: int,
+    lat_extent: Tuple[float, float] = (-90.0, 90.0),
+    lon_extent: Tuple[float, float] = (-180.0, 180.0),
+    plot_diff_percentage: bool = False,
+    cmap="chroma",
+    parameter_to_plot: str = "VSV",
+    figsize: Tuple[int, int] = (15, 8),
+    projection: Union[str, object] = "Mollweide",
+    coastlines: bool = True,
+    borders: bool = False,
+    stock_img: bool = False,
+    savefig: bool = False,
+    figname: str = "earth.png",
+    reverse: bool = False,
+    zero_center: bool = True,
+    title: str | None = None,
+    limits: Tuple[float, float] | None = None,
+    device=None,
+):
+    """Plot a depth slice of a mesh (reference api.py:399-487; the
+    reference hardcodes Mollweide with the projection kwarg commented out
+    at api.py:409 -- exposed here as a working pass-through)."""
+    from .viz.plotter import plot_depth_slice as _impl
+
+    return _impl(
+        mesh=mesh,
+        depth_in_km=depth_in_km,
+        num=num,
+        lat_extent=lat_extent,
+        lon_extent=lon_extent,
+        plot_diff_percentage=plot_diff_percentage,
+        cmap=cmap,
+        parameter_to_plot=parameter_to_plot,
+        figsize=figsize,
+        projection=projection,
+        coastlines=coastlines,
+        borders=borders,
+        stock_img=stock_img,
+        savefig=savefig,
+        figname=figname,
+        reverse=reverse,
+        zero_center=zero_center,
+        title=title,
+        limits=limits,
+        device=device,
+    )
+
+
+def plot_cross_section(
+    mesh,
+    point_1_lat: float = -20,
+    point_1_lng: float = 30,
+    point_2_lat: float = 20,
+    point_2_lng: float = 60,
+    max_depth_in_km: float = 2800,
+    min_depth_in_km: float = 0.0,
+    nrads: int = 201,
+    npoints: int = 301,
+    filename: str = "cross_section.pdf",
+    cmap="fusion",
+    reverse: bool = True,
+    clim: Tuple[float, float] = (-5, 5),
+    param_to_interp: str = "VSV",
+    discontinuities_to_plot: list = [410, 660, 1000],
+    device=None,
+):
+    """Plot a great-circle cross section (reference api.py:490-545)."""
+    from .viz.plotter import plot_cross_section as _impl
+
+    return _impl(
+        mesh=mesh,
+        point_1_lat=point_1_lat,
+        point_1_lng=point_1_lng,
+        point_2_lat=point_2_lat,
+        point_2_lng=point_2_lng,
+        max_depth_in_km=max_depth_in_km,
+        min_depth_in_km=min_depth_in_km,
+        nrads=nrads,
+        npoints=npoints,
+        filename=filename,
+        cmap=cmap,
+        reverse=reverse,
+        clim=clim,
+        param_to_interp=param_to_interp,
+        discontinuities_to_plot=discontinuities_to_plot,
+        device=device,
+    )
+
+
+def find_good_projection(
+    name: str = "default",
+    central_longitude: float = 0.0,
+    central_latitude: float = 0.0,
+    satellite_height: float = 10000000.0,
+    lat_extent=(-90.0, 90.0),
+    lon_extent=(-180.0, 180.0),
+    device=None,
+):
+    """Pick an appropriate map projection (reference api.py:548-597).
+    ``device`` is taken for the facade's uniform signature; nothing here
+    runs on a device."""
+    from .viz.plotter import create_projection
+
+    return create_projection(
+        name=name,
+        central_longitude=central_longitude,
+        central_latitude=central_latitude,
+        satellite_height=satellite_height,
+        lat_extent=lat_extent,
+        lon_extent=lon_extent,
+    )
 
 
 @_timed

@@ -22,7 +22,9 @@ PREFILTER_M = 4
 class Precision(enum.Enum):
     """Numerical policy for the device pipeline.
 
-    F64     -- everything in float64 (exactness validation).
+    F64     -- float64 refs and weights (exactness validation): the
+               float32 ladder decides acceptance, then every accepted
+               row takes ``f64_polish``'s float64 Newton steps.
     MIXED   -- candidate search and Newton bulk iterations in float32 on
                element-centered coordinates.  Default.
     F32     -- everything float32 (max-throughput benchmarking).

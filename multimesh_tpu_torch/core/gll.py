@@ -173,3 +173,9 @@ def corner_indices(order: int, dim: int) -> np.ndarray:
     else:
         raise ValueError(f"dimension must be 2 or 3, got {dim}")
     return np.asarray(idx, dtype=np.int32)
+
+
+def infer_order(n_nodes: int, dim: int) -> int:
+    """Polynomial order from node count, as the reference infers it
+    (reference interpolator.py:667: round(ndata**(1/dim)) - 1)."""
+    return int(round(n_nodes ** (1.0 / dim))) - 1

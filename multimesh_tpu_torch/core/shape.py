@@ -143,3 +143,9 @@ def inverse_map(elem_nodes: torch.Tensor, point: torch.Tensor, order: int,
         res = (point_c - forward_map(order, nodes_c, ref)).abs().amax(-1)
     tol = max(cfg.newton_rtol, float(torch.finfo(acc_dt).eps) * 64)
     return ref, res < tol
+
+
+def trilinear_inverse_map(elem_nodes: torch.Tensor, point: torch.Tensor,
+                          cfg: LocateConfig = DEFAULT_LOCATE, dtype=None):
+    """Inverse map for 2^d-corner (order-1) elements; thin wrapper."""
+    return inverse_map(elem_nodes, point, order=1, cfg=cfg, dtype=dtype)

@@ -65,6 +65,7 @@ apply_pairs_kernel(const float* __restrict__ ref_hi,
   constexpr int NN = DIM == 3 ? N1 * N1 * N1 : N1 * N1;
   constexpr int kSlots =
       mmt_grouping::slots_for(kSlotBytes, NN * (int)sizeof(double));
+  static_assert(kSlots >= 1, "one element field row must fit in kSlotBytes");
   __shared__ double rows[kSlots * NN];
   __shared__ mmt_grouping::SlotTable<kSlots> tab;
 
@@ -140,18 +141,15 @@ extern "C" int mmt_apply_pairs(const void* ref_hi, const void* ref_lo,
   if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (order * 10 + dim) {
-    case 12: return (int)launch<1, 2>(ref_hi, ref_lo, elements, perm, fields,
-                                      M, E, F, out, s);
-    case 13: return (int)launch<1, 3>(ref_hi, ref_lo, elements, perm, fields,
-                                      M, E, F, out, s);
-    case 22: return (int)launch<2, 2>(ref_hi, ref_lo, elements, perm, fields,
-                                      M, E, F, out, s);
-    case 23: return (int)launch<2, 3>(ref_hi, ref_lo, elements, perm, fields,
-                                      M, E, F, out, s);
-    case 42: return (int)launch<4, 2>(ref_hi, ref_lo, elements, perm, fields,
-                                      M, E, F, out, s);
-    case 43: return (int)launch<4, 3>(ref_hi, ref_lo, elements, perm, fields,
-                                      M, E, F, out, s);
+#define MMT_CASE(O, D) \
+    case O * 10 + D: \
+      return (int)launch<O, D>(ref_hi, ref_lo, elements, perm, fields, M, \
+                               E, F, out, s);
+    MMT_CASE(1, 2) MMT_CASE(1, 3) MMT_CASE(2, 2) MMT_CASE(2, 3)
+    MMT_CASE(3, 2) MMT_CASE(3, 3) MMT_CASE(4, 2) MMT_CASE(4, 3)
+    MMT_CASE(5, 2) MMT_CASE(5, 3) MMT_CASE(6, 2) MMT_CASE(6, 3)
+    MMT_CASE(7, 2) MMT_CASE(7, 3)
+#undef MMT_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,19 +15,52 @@ template <int ORDER> struct Gll;
 
 template <> struct Gll<1> {
   __device__ __forceinline__ static double x(int i) {
-    return i == 0 ? -1.0 : 1.0;
+    switch (i) {
+      case 0: return -1.0;
+      default: return 1.0;
+    }
   }
   __device__ __forceinline__ static double w(int i) {
-    return i == 0 ? -0.5 : 0.5;
+    switch (i) {
+      case 0: return -0.5;
+      default: return 0.5;
+    }
   }
 };
 
 template <> struct Gll<2> {
   __device__ __forceinline__ static double x(int i) {
-    return i == 0 ? -1.0 : (i == 1 ? 0.0 : 1.0);
+    switch (i) {
+      case 0: return -1.0;
+      case 1: return 0.0;
+      default: return 1.0;
+    }
   }
   __device__ __forceinline__ static double w(int i) {
-    return i == 1 ? -1.0 : 0.5;
+    switch (i) {
+      case 0: return 0.5;
+      case 1: return -1.0;
+      default: return 0.5;
+    }
+  }
+};
+
+template <> struct Gll<3> {
+  __device__ __forceinline__ static double x(int i) {
+    switch (i) {
+      case 0: return -1.0;
+      case 1: return -0.4472135954999579;
+      case 2: return 0.4472135954999579;
+      default: return 1.0;
+    }
+  }
+  __device__ __forceinline__ static double w(int i) {
+    switch (i) {
+      case 0: return -0.625;
+      case 1: return 1.3975424859373684;
+      case 2: return -1.3975424859373684;
+      default: return 0.625;
+    }
   }
 };
 
@@ -48,6 +81,81 @@ template <> struct Gll<4> {
       case 2: return 2.333333333333334;
       case 3: return -2.0416666666666665;
       default: return 0.8749999999999999;
+    }
+  }
+};
+
+template <> struct Gll<5> {
+  __device__ __forceinline__ static double x(int i) {
+    switch (i) {
+      case 0: return -1.0;
+      case 1: return -0.7650553239294647;
+      case 2: return -0.2852315164806451;
+      case 3: return 0.2852315164806451;
+      case 4: return 0.7650553239294647;
+      default: return 1.0;
+    }
+  }
+  __device__ __forceinline__ static double w(int i) {
+    switch (i) {
+      case 0: return -1.3125;
+      case 1: return 3.1272565826974357;
+      case 2: return -3.7864830338951148;
+      case 3: return 3.786483033895115;
+      case 4: return -3.1272565826974352;
+      default: return 1.3125000000000002;
+    }
+  }
+};
+
+template <> struct Gll<6> {
+  __device__ __forceinline__ static double x(int i) {
+    switch (i) {
+      case 0: return -1.0;
+      case 1: return -0.830223896278567;
+      case 2: return -0.46884879347071423;
+      case 3: return 0.0;
+      case 4: return 0.46884879347071423;
+      case 5: return 0.830223896278567;
+      default: return 1.0;
+    }
+  }
+  __device__ __forceinline__ static double w(int i) {
+    switch (i) {
+      case 0: return 2.0625;
+      case 1: return -4.972869706086958;
+      case 2: return 6.210369706086957;
+      case 3: return -6.6;
+      case 4: return 6.210369706086957;
+      case 5: return -4.972869706086958;
+      default: return 2.0625000000000004;
+    }
+  }
+};
+
+template <> struct Gll<7> {
+  __device__ __forceinline__ static double x(int i) {
+    switch (i) {
+      case 0: return -1.0;
+      case 1: return -0.8717401485096066;
+      case 2: return -0.5917001814331423;
+      case 3: return -0.20929921790247885;
+      case 4: return 0.20929921790247885;
+      case 5: return 0.5917001814331423;
+      case 6: return 0.8717401485096066;
+      default: return 1.0;
+    }
+  }
+  __device__ __forceinline__ static double w(int i) {
+    switch (i) {
+      case 0: return -3.3515624999999996;
+      case 1: return 8.140722718253864;
+      case 2: return -10.358136828950462;
+      case 3: return 11.389813748486596;
+      case 4: return -11.389813748486597;
+      case 5: return 10.358136828950459;
+      case 6: return -8.140722718253866;
+      default: return 3.3515624999999987;
     }
   }
 };

@@ -75,30 +75,63 @@ template <int ORDER> struct Gll;
 
 template <> struct Gll<1> {
   __device__ __forceinline__ static float x(int i) {
-    return i == 0 ? -1.0f : 1.0f;
+    switch (i) {
+      case 0: return (float)-1.0;
+      default: return (float)1.0;
+    }
   }
   __device__ __forceinline__ static float w(int i) {
-    return i == 0 ? -0.5f : 0.5f;
+    switch (i) {
+      case 0: return (float)-0.5;
+      default: return (float)0.5;
+    }
   }
 };
 
 template <> struct Gll<2> {
   __device__ __forceinline__ static float x(int i) {
-    return i == 0 ? -1.0f : (i == 1 ? 0.0f : 1.0f);
+    switch (i) {
+      case 0: return (float)-1.0;
+      case 1: return (float)0.0;
+      default: return (float)1.0;
+    }
   }
   __device__ __forceinline__ static float w(int i) {
-    return i == 1 ? -1.0f : 0.5f;
+    switch (i) {
+      case 0: return (float)0.5;
+      case 1: return (float)-1.0;
+      default: return (float)0.5;
+    }
+  }
+};
+
+template <> struct Gll<3> {
+  __device__ __forceinline__ static float x(int i) {
+    switch (i) {
+      case 0: return (float)-1.0;
+      case 1: return (float)-0.4472135954999579;
+      case 2: return (float)0.4472135954999579;
+      default: return (float)1.0;
+    }
+  }
+  __device__ __forceinline__ static float w(int i) {
+    switch (i) {
+      case 0: return (float)-0.625;
+      case 1: return (float)1.3975424859373684;
+      case 2: return (float)-1.3975424859373684;
+      default: return (float)0.625;
+    }
   }
 };
 
 template <> struct Gll<4> {
   __device__ __forceinline__ static float x(int i) {
     switch (i) {
-      case 0: return -1.0f;
+      case 0: return (float)-1.0;
       case 1: return (float)-0.6546536707079771;
-      case 2: return 0.0f;
+      case 2: return (float)0.0;
       case 3: return (float)0.6546536707079771;
-      default: return 1.0f;
+      default: return (float)1.0;
     }
   }
   __device__ __forceinline__ static float w(int i) {
@@ -108,6 +141,81 @@ template <> struct Gll<4> {
       case 2: return (float)2.333333333333334;
       case 3: return (float)-2.0416666666666665;
       default: return (float)0.8749999999999999;
+    }
+  }
+};
+
+template <> struct Gll<5> {
+  __device__ __forceinline__ static float x(int i) {
+    switch (i) {
+      case 0: return (float)-1.0;
+      case 1: return (float)-0.7650553239294647;
+      case 2: return (float)-0.2852315164806451;
+      case 3: return (float)0.2852315164806451;
+      case 4: return (float)0.7650553239294647;
+      default: return (float)1.0;
+    }
+  }
+  __device__ __forceinline__ static float w(int i) {
+    switch (i) {
+      case 0: return (float)-1.3125;
+      case 1: return (float)3.1272565826974357;
+      case 2: return (float)-3.7864830338951148;
+      case 3: return (float)3.786483033895115;
+      case 4: return (float)-3.1272565826974352;
+      default: return (float)1.3125000000000002;
+    }
+  }
+};
+
+template <> struct Gll<6> {
+  __device__ __forceinline__ static float x(int i) {
+    switch (i) {
+      case 0: return (float)-1.0;
+      case 1: return (float)-0.830223896278567;
+      case 2: return (float)-0.46884879347071423;
+      case 3: return (float)0.0;
+      case 4: return (float)0.46884879347071423;
+      case 5: return (float)0.830223896278567;
+      default: return (float)1.0;
+    }
+  }
+  __device__ __forceinline__ static float w(int i) {
+    switch (i) {
+      case 0: return (float)2.0625;
+      case 1: return (float)-4.972869706086958;
+      case 2: return (float)6.210369706086957;
+      case 3: return (float)-6.6;
+      case 4: return (float)6.210369706086957;
+      case 5: return (float)-4.972869706086958;
+      default: return (float)2.0625000000000004;
+    }
+  }
+};
+
+template <> struct Gll<7> {
+  __device__ __forceinline__ static float x(int i) {
+    switch (i) {
+      case 0: return (float)-1.0;
+      case 1: return (float)-0.8717401485096066;
+      case 2: return (float)-0.5917001814331423;
+      case 3: return (float)-0.20929921790247885;
+      case 4: return (float)0.20929921790247885;
+      case 5: return (float)0.5917001814331423;
+      case 6: return (float)0.8717401485096066;
+      default: return (float)1.0;
+    }
+  }
+  __device__ __forceinline__ static float w(int i) {
+    switch (i) {
+      case 0: return (float)-3.3515624999999996;
+      case 1: return (float)8.140722718253864;
+      case 2: return (float)-10.358136828950462;
+      case 3: return (float)11.389813748486596;
+      case 4: return (float)-11.389813748486597;
+      case 5: return (float)10.358136828950459;
+      case 6: return (float)-8.140722718253866;
+      default: return (float)3.3515624999999987;
     }
   }
 };
@@ -340,6 +448,7 @@ newton_rows_kernel(const double* __restrict__ points,
   using Vec = typename Sh::Vec;
   constexpr int NN = Sh::kNodes;
   constexpr int kSlots = Sh::kSlots;
+  static_assert(kSlots >= 1, "one element lattice must fit in kSlotBytes");
   __shared__ Vec lat[kSlots * NN];
   __shared__ mmt_grouping::SlotTable<kSlots> tab;
 
@@ -538,18 +647,15 @@ extern "C" int mmt_newton_rows(const void* points, const void* ids,
   if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (order * 10 + dim) {
-    case 12: return (int)launch<1, 2>(points, ids, perm, ctr, inv_scale,
-                                      nodes, M, E, iters, clamp, refs, res, s);
-    case 13: return (int)launch<1, 3>(points, ids, perm, ctr, inv_scale,
-                                      nodes, M, E, iters, clamp, refs, res, s);
-    case 22: return (int)launch<2, 2>(points, ids, perm, ctr, inv_scale,
-                                      nodes, M, E, iters, clamp, refs, res, s);
-    case 23: return (int)launch<2, 3>(points, ids, perm, ctr, inv_scale,
-                                      nodes, M, E, iters, clamp, refs, res, s);
-    case 42: return (int)launch<4, 2>(points, ids, perm, ctr, inv_scale,
-                                      nodes, M, E, iters, clamp, refs, res, s);
-    case 43: return (int)launch<4, 3>(points, ids, perm, ctr, inv_scale,
-                                      nodes, M, E, iters, clamp, refs, res, s);
+#define MMT_CASE(O, D) \
+    case O * 10 + D: \
+      return (int)launch<O, D>(points, ids, perm, ctr, inv_scale, nodes, M, E, \
+                               iters, clamp, refs, res, s);
+    MMT_CASE(1, 2) MMT_CASE(1, 3) MMT_CASE(2, 2) MMT_CASE(2, 3)
+    MMT_CASE(3, 2) MMT_CASE(3, 3) MMT_CASE(4, 2) MMT_CASE(4, 3)
+    MMT_CASE(5, 2) MMT_CASE(5, 3) MMT_CASE(6, 2) MMT_CASE(6, 3)
+    MMT_CASE(7, 2) MMT_CASE(7, 3)
+#undef MMT_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

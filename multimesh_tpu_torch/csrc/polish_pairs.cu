@@ -115,6 +115,7 @@ polish_pairs_kernel(const double* __restrict__ points,
   constexpr int NN = DIM == 3 ? N1 * N1 * N1 : N1 * N1;
   constexpr int kSlots =
       mmt_grouping::slots_for(kSlotBytes, NN * DIM * (int)sizeof(double));
+  static_assert(kSlots >= 1, "one element lattice must fit in kSlotBytes");
   __shared__ double lat[kSlots * DIM * NN];  // slot s, plane a: (s*DIM+a)*NN
   __shared__ mmt_grouping::SlotTable<kSlots> tab;
 
@@ -204,24 +205,15 @@ extern "C" int mmt_polish_pairs(const void* points, const void* ids,
   if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (order * 10 + dim) {
-    case 12: return (int)launch<1, 2>(points, ids, perm, ref0, ctr,
-                                      inv_scale, nodes, M, E, iters, ref_hi,
-                                      ref_lo, ok, s);
-    case 13: return (int)launch<1, 3>(points, ids, perm, ref0, ctr,
-                                      inv_scale, nodes, M, E, iters, ref_hi,
-                                      ref_lo, ok, s);
-    case 22: return (int)launch<2, 2>(points, ids, perm, ref0, ctr,
-                                      inv_scale, nodes, M, E, iters, ref_hi,
-                                      ref_lo, ok, s);
-    case 23: return (int)launch<2, 3>(points, ids, perm, ref0, ctr,
-                                      inv_scale, nodes, M, E, iters, ref_hi,
-                                      ref_lo, ok, s);
-    case 42: return (int)launch<4, 2>(points, ids, perm, ref0, ctr,
-                                      inv_scale, nodes, M, E, iters, ref_hi,
-                                      ref_lo, ok, s);
-    case 43: return (int)launch<4, 3>(points, ids, perm, ref0, ctr,
-                                      inv_scale, nodes, M, E, iters, ref_hi,
-                                      ref_lo, ok, s);
+#define MMT_CASE(O, D) \
+    case O * 10 + D: \
+      return (int)launch<O, D>(points, ids, perm, ref0, ctr, inv_scale, \
+                               nodes, M, E, iters, ref_hi, ref_lo, ok, s);
+    MMT_CASE(1, 2) MMT_CASE(1, 3) MMT_CASE(2, 2) MMT_CASE(2, 3)
+    MMT_CASE(3, 2) MMT_CASE(3, 3) MMT_CASE(4, 2) MMT_CASE(4, 3)
+    MMT_CASE(5, 2) MMT_CASE(5, 3) MMT_CASE(6, 2) MMT_CASE(6, 3)
+    MMT_CASE(7, 2) MMT_CASE(7, 3)
+#undef MMT_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -52,7 +52,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import DEFAULT_LOCATE, LocateConfig
 from ..ops.transfer import TransferOperator
-from ..progress import Progress, progress
+from ..progress import progress
 from ..search import nearest as _nearest
 from ..search.grid import build_grid
 from ..search.locate import locate as _locate
@@ -216,9 +216,7 @@ def sharded_transfer(points, elem_nodes, fields, order: int,
     with progress(hi - lo, "sharded transfer", n_steps=len(chunks)) as pbar:
         for i, vals in enumerate(chunks):
             send[i * step:i * step + vals.shape[0]] = vals
-            if isinstance(pbar, Progress) and device.type == "cuda":
-                torch.cuda.synchronize(device)
-            pbar.step(vals.shape[0])
+            pbar.step(vals.shape[0], device_value=vals)
     out = _all_gather(send, group, device, stats).view(W * per, F)[:N]
     return out if device_out else out.cpu().numpy().astype(np.float64)
 

@@ -5,8 +5,9 @@ multi_mesh/components/interpolator.py:1318-1326, :1522, :1571) and
 periodic prints (:206-207); without an equivalent, a 100M-point locate
 or a file-to-file transfer runs minutes with zero output.  This module
 is the analogue (a copy of the JAX package's ``progress.py``): a
-throttled, single-line reporter driven from the chunk loops (so far the
-engine file path's write-back).
+throttled, single-line reporter driven from the chunk loops: ``locate``'s
+chunks and its scan retry ("locate", "locate retry"), the engine's
+write-backs and the sharded transfer's apply.
 
 Enablement (``MMT_PROGRESS``):
 
@@ -15,11 +16,13 @@ Enablement (``MMT_PROGRESS``):
 * ``1``  -- force on (line-per-update when stderr is not a TTY).
 * ``0``  -- force off.
 
-The write-back loop is host work, so its counter is honest as it stands.
-A loop that only dispatches asynchronous CUDA launches would sprint to
-100% and then stall on the real work: a bar on such a loop (``locate``'s
-chunks, not reported yet) has to wait for the device now and then, which
-this reporter does not do.
+Device-honest pacing: CUDA launches are asynchronous, so a loop that
+only dispatches them would sprint to 100% and then stall on the real
+work.  Such a loop passes the last tensor it produced to
+:meth:`Progress.step`; every ``n_steps // 20`` steps (and at the last)
+the reporter waits for it by reading one of its elements, so the bar
+tracks the device at ~5% granularity.  None of this happens when
+reporting is disabled: the no-op reporter reads nothing.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ def _fmt_count(x: float) -> str:
 
 
 class _NullProgress:
-    def step(self, n):
+    def step(self, n, device_value=None):
         pass
 
     def close(self):
@@ -72,7 +75,7 @@ class Progress:
     reporter; at most one redraw every ``min_interval`` seconds."""
 
     def __init__(self, total: int, label: str, unit: str = "pts",
-                 min_interval: float = 0.25):
+                 n_steps: int | None = None, min_interval: float = 0.25):
         self.total = max(1, int(total))
         self.label = label
         self.unit = unit
@@ -85,11 +88,21 @@ class Progress:
             self._tty = sys.stderr.isatty()
         except Exception:
             self._tty = False
+        # wait for the device about every 5% of the steps (>= 1): often
+        # enough for an honest bar, rare enough to keep the queue full
+        self._stride = max(1, (n_steps or 20) // 20)
+        self._step_i = 0
         self._drew = False
 
-    def step(self, n: int):
-        """Advance by ``n`` units."""
+    def step(self, n: int, device_value=None):
+        """Advance by ``n`` units; ``device_value`` (a tensor, optional) is
+        waited for on stride boundaries so the bar tracks the device."""
         self.done += int(n)
+        self._step_i += 1
+        if device_value is not None and device_value.numel() and (
+            self._step_i % self._stride == 0 or self.done >= self.total
+        ):
+            device_value.reshape(-1)[:1].tolist()  # waits for its stream
         now = time.perf_counter()
         if (now - self._last_draw) < self._min_interval and (
             self.done < self.total
@@ -148,10 +161,10 @@ def progress(total: int, label: str, unit: str = "pts",
 
         with progress(n_elem, "write-back", n_steps=n_blocks) as p:
             for ...:
-                p.step(block_len)
+                p.step(block_len)  # device loops: device_value=out
     """
     if not progress_enabled():
         return _NULL
     if n_steps is not None and n_steps < min_steps:
         return _NULL
-    return Progress(total, label, unit=unit)
+    return Progress(total, label, unit=unit, n_steps=n_steps)

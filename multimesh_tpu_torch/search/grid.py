@@ -162,6 +162,15 @@ def get_grid_index(sources, target_per_cell: int = 128,
     return index
 
 
+def spatial_order(sources) -> np.ndarray:
+    """Permutation [E] int64 placing spatially adjacent sources at
+    adjacent indices: the members of the median-split bins of 32 in the
+    tree's DFS order, which walks the domain like a space-filling curve
+    (host numpy; the JAX package's permutation)."""
+    cents = np.asarray(sources, np.float64)
+    return np.concatenate(_median_split(cents, 32)).astype(np.int64)
+
+
 def _row_step(n_bins: int, p: int, d: int, m: int) -> int:
     """Query rows per block, so that neither the [rows, n_bins] score of
     stage 1 nor the [rows, p, d, m] member gather of stage 2 exceeds

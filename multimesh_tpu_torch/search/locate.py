@@ -28,7 +28,12 @@ Then, on both routes:
 6. on request, a polish of the accepted rows: ``LocateConfig.f64_polish``
    (two f64 Newton steps in plain torch, f64 refs) or ``df32_polish``
    (K4, ``search.polish``; the refs become an (f32, f32) pair that the
-   transfer operator applies through K5).
+   transfer operator applies through K5).  ``Precision.F64`` is served
+   as ``f64_polish``: acceptance is decided in f32 by the kernels, then
+   every accepted row is polished in f64 and the refs and weights come
+   back f64, on both strategies and both devices.  (On the JAX package's
+   CPU engine F64 runs every Newton step in f64; on its accelerator
+   engine it changes only the xla engine's dtype.)
 
 ``strategy="scan"``: kNN candidates (``grid.knn_any``: exact up to
 131,072 elements, 8 probed bins beyond), ranked down to ``prefilter_m``
@@ -52,7 +57,9 @@ budget); on the scan they are the list to scan.  ``centroids`` [E, d]
 replace the mesh's own node means in every search and as the grid
 index's key, never in the geometry (AABBs, unit frames).
 
-Outside the port (raises ``NotImplementedError``): ``Precision.F64``.
+The chunk loop and the scan retry report progress ("locate", "locate
+retry"; ``progress.progress``, off unless enabled), waiting for the
+device about every 5% of the chunks only when it is on.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ from ..config import (DEFAULT_LOCATE, FALLBACK_REF_COORD, LocateConfig,
                       Precision)
 from ..core import gll, shape
 from ..hashing import array_fingerprint
+from ..progress import progress as _progress
 from . import grid as _grid
 from . import knn as _knn
 from . import newton as _newton
@@ -459,10 +467,6 @@ def _check_scope(cfg, fallback, strategy):
         raise ValueError(f"unknown fallback mode {fallback!r}")
     if strategy not in _STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
-    if cfg.precision == Precision.F64:
-        raise NotImplementedError(
-            "Precision.F64 is not ported: the kernels solve in f32; "
-            "LocateConfig(f64_polish=True) gives f64 refs")
 
 
 def _empty(d, device):
@@ -474,11 +478,12 @@ def _empty(d, device):
 
 
 def _rescan(rows, points, out, prep, evaluate, cfg, fallback, chunk,
-            k_full, candidates=None):
+            k_full, candidates=None, pbar=None):
     """Scan rows ``rows`` again with fresh candidates (the full ``k_full``
     list of ``grid.knn_any``, or the caller's ``candidates`` rows),
     chunked, and write their (elements, refs, found, accepted) into
-    ``out`` in place."""
+    ``out`` in place, stepping ``pbar`` (a progress reporter) a chunk at
+    a time."""
     for rs in range(0, int(rows.shape[0]), chunk):
         r = rows[rs:rs + chunk]
         pts_r = points[r]
@@ -490,6 +495,8 @@ def _rescan(rows, points, out, prep, evaluate, cfg, fallback, chunk,
         for dst, src in zip(out, _scan_candidates(pts_r, cand_r, evaluate,
                                                   cfg, fallback, prep)):
             dst[r] = src
+        if pbar is not None:
+            pbar.step(r.shape[0], device_value=out[0])
 
 
 def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
@@ -549,13 +556,15 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
                             div4=rescue_by.div4)
 
     outs = []
-    for s in range(0, N, chunk):
-        pts_c = points[s:s + chunk]
-        C = 1 << max(0, pts_c.shape[0] - 1).bit_length()
-        cand_c = (round1(pts_c) if candidates is None
-                  else candidates[s:s + chunk])
-        outs.append(_ladder_chunk(pts_c, cand_c, evaluate, cfg,
-                                  fallback, C, rescue_by))
+    with _progress(N, "locate", n_steps=-(-N // chunk)) as pbar:
+        for s in range(0, N, chunk):
+            pts_c = points[s:s + chunk]
+            C = 1 << max(0, pts_c.shape[0] - 1).bit_length()
+            cand_c = (round1(pts_c) if candidates is None
+                      else candidates[s:s + chunk])
+            outs.append(_ladder_chunk(pts_c, cand_c, evaluate, cfg,
+                                      fallback, C, rescue_by))
+            pbar.step(pts_c.shape[0], device_value=outs[-1][0])
     if not outs:
         return (*_empty(d, device), 0)
     elements, refs, found, accepted, needs_retry = (
@@ -579,9 +588,12 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
     # ladder degrades to the scan's semantics, never to a silent
     # fallback on an interior point.
     out = (elements, refs, found, accepted)
-    _rescan(retry, points, out, prep, evaluate, cfg, fallback, chunk, k_full,
-            candidates)
-    return (*out, int(retry.shape[0]))
+    n_retry = int(retry.shape[0])
+    with _progress(n_retry, "locate retry",
+                   n_steps=-(-n_retry // chunk)) as rbar:
+        _rescan(retry, points, out, prep, evaluate, cfg, fallback, chunk,
+                k_full, candidates, rbar)
+    return (*out, n_retry)
 
 
 def _locate_scan(points, prep, evaluate, solve1, cfg, fallback, chunk,
@@ -592,20 +604,24 @@ def _locate_scan(points, prep, evaluate, solve1, cfg, fallback, chunk,
     accepted)."""
     N, d = points.shape
     outs = []
-    for s in range(0, N, chunk):
-        pts_c = points[s:s + chunk]
-        if candidates is not None:
-            cand = candidates[s:s + chunk]
-        else:
-            cand = _grid.knn_any(prep.centroids, pts_c, k_full,
-                                 sources_host=prep.centroids_host)[1]
-        if prefilter:
-            # only the nearest prefilter_pool candidates enter the ranking
-            pool = min(max(prefilter_m, cfg.prefilter_pool), cand.shape[1])
-            cand = _prefilter_rank(pts_c, cand[:, :pool], solve1,
-                                   prefilter_m)
-        outs.append(_scan_candidates(pts_c, cand, evaluate, cfg, fallback,
-                                     prep))
+    with _progress(N, "locate", n_steps=-(-N // chunk)) as pbar:
+        for s in range(0, N, chunk):
+            pts_c = points[s:s + chunk]
+            if candidates is not None:
+                cand = candidates[s:s + chunk]
+            else:
+                cand = _grid.knn_any(prep.centroids, pts_c, k_full,
+                                     sources_host=prep.centroids_host)[1]
+            if prefilter:
+                # only the nearest prefilter_pool candidates enter the
+                # ranking
+                pool = min(max(prefilter_m, cfg.prefilter_pool),
+                           cand.shape[1])
+                cand = _prefilter_rank(pts_c, cand[:, :pool], solve1,
+                                       prefilter_m)
+            outs.append(_scan_candidates(pts_c, cand, evaluate, cfg,
+                                         fallback, prep))
+            pbar.step(pts_c.shape[0], device_value=outs[-1][0])
     if not outs:
         return _empty(d, points.device)
     out = tuple(torch.cat(c) for c in zip(*outs))
@@ -681,7 +697,8 @@ def locate(points, elem_nodes, order: int,
     "best", "fixed_ref"}; ``strategy`` in {"auto", "ladder", "scan"}
     ("auto" is the ladder); ``prefilter_m`` > 0 ranks the scan's
     candidates by the trilinear prefilter; the polish options of ``cfg``
-    run on the ladder only (the scan warns and skips them).  On a CUDA
+    run on the ladder only (the scan warns and skips them), except
+    ``Precision.F64``, whose f64 polish runs on both.  On a CUDA
     device the Newton solves, the nearest-centroid round 1 (the grid
     route's searches are stock PyTorch) and the df32 polish run the
     hand-written kernels; on the CPU, their plain twins.
@@ -697,8 +714,10 @@ def locate(points, elem_nodes, order: int,
     E, _, d = elem_nodes.shape
     _check_scope(cfg, fallback, strategy)
     ladder = strategy != "scan"
-    polish = cfg.f64_polish or cfg.df32_polish
-    if polish and not ladder:
+    # Precision.F64: f64 refs from f64_polish semantics, on either strategy
+    f64 = cfg.precision == Precision.F64
+    polish = cfg.f64_polish or cfg.df32_polish or f64
+    if polish and not ladder and not f64:
         warnings.warn(
             "f64_polish / df32_polish run on the ladder only; "
             "strategy='scan' skips them", stacklevel=2)
@@ -740,7 +759,7 @@ def locate(points, elem_nodes, order: int,
     refs_lo = None
     if polish and N:
         # after the retry, so scan-retried accepted rows are polished too
-        if cfg.f64_polish:
+        if cfg.f64_polish or f64:
             refs = _f64_polish(points, elements, refs, accepted, prep, order,
                                cfg, chunk)
         else:

@@ -33,7 +33,7 @@ import torch
 from .. import _build
 from ..core import shape
 
-ORDERS = (1, 2, 4)  # the orders the kernel is compiled for
+ORDERS = (1, 2, 3, 4, 5, 6, 7)  # the orders the kernel is compiled for
 _MAX_ROWS = 2**31 - 1  # int32 row indices
 
 

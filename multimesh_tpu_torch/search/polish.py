@@ -25,7 +25,7 @@ from .. import _build
 from ..core import gll, shape
 from .newton import group_rows
 
-ORDERS = (1, 2, 4)  # the orders the kernels are compiled for
+ORDERS = (1, 2, 3, 4, 5, 6, 7)  # the orders the kernels are compiled for
 # A genuine polish step of an accepted f32 ref is O(f32 residual); a larger
 # one means the update diverged and the caller keeps the f32 ref (the JAX
 # package's _STEP_GUARD).

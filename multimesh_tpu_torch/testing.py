@@ -1,9 +1,9 @@
 """Synthetic mesh fixtures for tests and the on-card smoke run.
 
-The numpy parts of the JAX package's ``testing.py``: structured hexahedral GLL
-meshes over boxes and spherical shells, and smooth analytic fields that
-interpolation must reproduce.  The same arguments give the same arrays
-as the JAX package's fixtures.
+The JAX package's ``testing.py``: structured hexahedral GLL meshes over
+boxes and spherical shells, and smooth analytic fields that interpolation
+must reproduce (numpy, and ``smooth_field_torch`` on tensors).  The same
+arguments give the same arrays as the JAX package's fixtures.
 """
 from __future__ import annotations
 
@@ -200,6 +200,30 @@ def smooth_field(points: np.ndarray, kind: str = "smooth",
         return out
     raise ValueError(kind)
 
+
+
+def smooth_field_torch(points, kind: str = "smooth", scale: float = 6.371e6):
+    """``smooth_field`` on a tensor of any device and dtype (the JAX
+    package's ``smooth_field_jnp``): for accuracy checks on the card at
+    sizes where evaluating the field on the host would dominate;
+    Earth-scale normalization by default."""
+    import torch
+
+    u = points / scale
+    if kind == "linear":
+        out = 2.0 + u[..., 0] + 0.5 * u[..., 1]
+        if points.shape[-1] == 3:
+            out = out - 0.25 * u[..., 2]
+        return out
+    if kind == "smooth":
+        out = (
+            4.5
+            + torch.sin(3.0 * u[..., 0]) * torch.cos(2.0 * u[..., 1] + 0.5)
+        )
+        if points.shape[-1] == 3:
+            out = out + 0.3 * torch.sin(2.0 * u[..., 2] + 1.0)
+        return out
+    raise ValueError(kind)
 
 def element_nodal_field(mesh: StructuredMesh, kind: str = "smooth"):
     """Sample a smooth_field at every GLL node: [nelem, n_gll]."""

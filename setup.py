@@ -33,6 +33,7 @@ setup(
     entry_points={
         "console_scripts": [
             "multimesh_tpu = multimesh_tpu.cli:cli",
+            "multimesh_tpu_torch = multimesh_tpu_torch.cli:cli",
         ]
     },
 )

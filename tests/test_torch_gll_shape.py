@@ -49,7 +49,7 @@ def test_tensor_basis_grad_matches_jax(order, dim):
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("order", [1, 2, 3, 4, 5, 6, 7])
 def test_node_tables_match_jax(order):
     """The numpy node tables are copies: bitwise equal."""
     for a, b in zip(tgll.gll_nodes(order), jgll.gll_nodes(order)):
@@ -171,3 +171,54 @@ def test_fixtures_match_jax(kind):
     for fk in ("smooth", "linear"):
         np.testing.assert_array_equal(tmt.element_nodal_field(a, fk),
                                       jmt.element_nodal_field(b, fk))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_trilinear_inverse_map_matches_jax(dim):
+    """The order-1 wrapper: the same refs (1e-10) and masks as the JAX
+    package's on warped corner elements, points inside and outside."""
+    mesh = _mesh(1, dim)
+    rng = np.random.default_rng(40 + dim)
+    ids = rng.integers(0, mesh.nelem, 200)
+    nodes = mesh.points[ids]
+    ref_true = rng.uniform(-0.95, 0.95, (200, dim))
+    ref_true[:20] *= 1.6
+    pts = np.array(jshape.forward_map(1, jnp.asarray(nodes),
+                                      jnp.asarray(ref_true)))
+    want_ref, want_conv = jshape.trilinear_inverse_map(jnp.asarray(nodes),
+                                                       jnp.asarray(pts))
+    got_ref, got_conv = tshape.trilinear_inverse_map(
+        torch.from_numpy(nodes), torch.from_numpy(pts))
+    np.testing.assert_array_equal(got_conv.numpy(), np.asarray(want_conv))
+    conv = got_conv.numpy()
+    assert conv.all()
+    np.testing.assert_allclose(got_ref.numpy(), np.asarray(want_ref),
+                               atol=1e-10)
+    np.testing.assert_allclose(got_ref.numpy(), ref_true, atol=1e-9)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "linear"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_smooth_field_torch_matches_smooth_field(kind, dim):
+    """The tensor field against the numpy one (and the JAX package's
+    ``smooth_field_jnp``) at Earth scale, 1e-15 relative, f64 on the
+    CPU; f32 input stays f32."""
+    pts = np.random.default_rng(dim).uniform(-6.4e6, 6.4e6, (2000, dim))
+    got = tmt.smooth_field_torch(torch.from_numpy(pts), kind).numpy()
+    want = tmt.smooth_field(pts, kind, scale=6.371e6)
+    np.testing.assert_allclose(got, want, rtol=1e-15, atol=0)
+    np.testing.assert_allclose(
+        got, np.asarray(jmt.smooth_field_jnp(jnp.asarray(pts), kind)),
+        rtol=1e-15, atol=0)
+    f32 = tmt.smooth_field_torch(torch.from_numpy(pts).float(), kind)
+    assert f32.dtype == torch.float32
+    with pytest.raises(ValueError):
+        tmt.smooth_field_torch(torch.from_numpy(pts), "rough")
+
+
+def test_infer_order_matches_jax():
+    for order in range(1, 8):
+        for dim in (2, 3):
+            n = (order + 1) ** dim
+            assert tgll.infer_order(n, dim) == jgll.infer_order(n, dim) \
+                == order

@@ -254,3 +254,15 @@ def test_fingerprint_cache_serves_hits_and_frees_arrays(rng, monkeypatch):
     del arr
     gc.collect()
     assert thash._FROZEN_CACHE[key][0]() is None
+
+
+def test_spatial_order_matches_jax(shell_cents, rng):
+    """The permutation is the JAX package's bit for bit (the same host
+    median split), on shell centroids and on random points."""
+    for cents in (shell_cents, rng.normal(size=(3001, 3)),
+                  rng.uniform(size=(700, 2))):
+        got = tgrid.spatial_order(cents)
+        want = jgrid.spatial_order(cents)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(np.sort(got), np.arange(len(cents)))

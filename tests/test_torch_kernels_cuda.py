@@ -22,6 +22,8 @@ from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
 from multimesh_tpu_torch.search import nearest, newton, polish  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+# every (order, dim) pair K1, K4 and K5 are built for
+ORDER_DIMS = [(o, d) for o in newton.ORDERS for d in (2, 3)]
 
 
 @pytest.fixture
@@ -64,8 +66,7 @@ def test_nearest_kernel_small_and_tied(dev):
     assert (nearest.nearest(q, src) == 0).all()
 
 
-@pytest.mark.parametrize("order,dim", [(1, 2), (1, 3), (2, 2), (2, 3),
-                                       (4, 2), (4, 3)])
+@pytest.mark.parametrize("order,dim", ORDER_DIMS)
 def test_newton_kernel_matches_twin(dev, order, dim):
     """K1 against the twin on 20,000 rows (nearest-centroid elements plus
     10% random ones): acceptance agrees on >= 99.9% of rows and accepted
@@ -333,8 +334,7 @@ def _polish_rows(dev, order, dim, M, seed, shape_=None, distinct=False):
             dim), refs
 
 
-@pytest.mark.parametrize("order,dim", [(1, 2), (1, 3), (2, 2), (2, 3),
-                                       (4, 2), (4, 3)])
+@pytest.mark.parametrize("order,dim", ORDER_DIMS)
 def test_polish_kernel_matches_twin(dev, order, dim):
     """K4 against its twin on 20,000 rows: ok agrees everywhere, hi + lo
     to 1e-11, and both within 1e-10 of the known refs; one launch."""
@@ -375,8 +375,7 @@ def _row_order(dev, ids, rows):
 
 
 @pytest.mark.parametrize("rows", ["shuffled", "presorted"])
-@pytest.mark.parametrize("order,dim", [(1, 2), (1, 3), (2, 2), (2, 3),
-                                       (4, 2), (4, 3)])
+@pytest.mark.parametrize("order,dim", ORDER_DIMS)
 def test_polish_kernel_grouped_rows_match_twin(dev, order, dim, rows):
     """K4 on grouped rows (20,003 of them: not a multiple of a block,
     ids -1 and E among them), shuffled or presorted by element: ok equal
@@ -485,7 +484,7 @@ def test_apply_kernel_slot_overflow_matches_slotted(dev):
                  .max()) <= 1e-12
 
 
-@pytest.mark.parametrize("order,dim", [(2, 3), (4, 2), (4, 3)])
+@pytest.mark.parametrize("order,dim", ORDER_DIMS)
 def test_apply_kernel_matches_twin(dev, order, dim):
     """K5 against its twin on 50,000 rows x 3 parameters: relative 1e-12;
     element -1 gives 0, an id past E gives NaN; one launch."""

@@ -32,7 +32,6 @@ jgrid_mod = importlib.import_module("multimesh_tpu.search.grid")
 from multimesh_tpu_torch.config import (  # noqa: E402
     LocateConfig as TLocateConfig,
 )
-from multimesh_tpu_torch.config import Precision as TPrecision  # noqa: E402
 from multimesh_tpu_torch.config import FALLBACK_REF_COORD  # noqa: E402
 from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
 from multimesh_tpu_torch.search import knn as tknn  # noqa: E402
@@ -201,17 +200,6 @@ def test_empty_query_set(shell):
     got = tloc.locate(np.zeros((0, 3)), mesh.points, 4, device="cpu")
     assert got.elements.shape == (0,) and got.refs.shape == (0, 3)
     assert got.weights.shape == (0, 125) and got.found.shape == (0,)
-
-
-@pytest.mark.parametrize("case", ["f64_precision"])
-def test_out_of_slice_options_raise(case):
-    """Options outside the port raise NotImplementedError naming what is
-    missing instead of silently taking another path."""
-    mesh = jmt.box_mesh(shape=(2, 2, 2), order=1)
-    pts = np.full((4, 3), 0.5)
-    cfg = TLocateConfig(precision=TPrecision.F64)
-    with pytest.raises(NotImplementedError, match="Precision.F64"):
-        tloc.locate(pts, mesh.points, 1, cfg, device="cpu")
 
 
 def test_unknown_fallback_and_device_raise():

@@ -84,9 +84,6 @@ def test_engine_has_every_function_of_the_jax_engine():
         # (the two LocateConfig classes are copies: compared by repr)
         assert all(repr(t[k].default) == repr(j[k].default)
                    for k in j), name
-    for name in ("plot_depth_slice", "plot_cross_section",
-                 "find_good_projection"):
-        assert not hasattr(tapi, name)
 
 
 # -- Exodus <-> GLL -----------------------------------------------------------

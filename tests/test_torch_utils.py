@@ -1,5 +1,6 @@
 """``multimesh_tpu_torch.utils`` (host numpy, a copy of the JAX package's
-``utils.py`` without ``greatcircle_points``): the reference's own cases of
+``utils.py``; ``greatcircle_points`` is held in
+``test_torch_geodesic.py``): the reference's own cases of
 ``tests/test_utils.py`` run against the port, and every function against
 the JAX package's on the same seeded inputs, bit for bit -- both are host
 numpy, so any difference is a copying error.
@@ -25,7 +26,7 @@ from multimesh_tpu_torch.io import exodus as teio  # noqa: E402
 def test_config_constants_equal():
     assert tconfig.R_EARTH_M == jconfig.R_EARTH_M
     assert tconfig.PARAM_PRESETS == jconfig.PARAM_PRESETS
-    assert not hasattr(tutils, "greatcircle_points")
+    assert callable(tutils.greatcircle_points)
 
 
 @pytest.mark.parametrize("spec", ["TTI", "ISO", ["A", "B"], "WEIRD",
