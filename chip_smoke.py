@@ -108,9 +108,42 @@ each on stdout:
    grid that overhangs the shell on every side, 3 parameters, sentinel:
    zeros exactly on the rows outside, < 1e-6 inside, the retry's rows
    and share of the wall, one chunk from the middle of the grid against
-   the plain path (sentinel and scan retry included); then ``bench.py``'s ``grid2d`` shape (a 2-D
+   the plain path (sentinel and scan retry included); the grid written
+   by ``RegularGridData.to_netcdf(format="NETCDF3_64BIT")`` (scipy) and
+   read back with ``scipy.io.netcdf_file``, every variable and coordinate
+   equal; then ``bench.py``'s ``grid2d`` shape (a 2-D
    order-4 24 x 24 warped box, 512 x 512 points) for K1 at 4/2;
-15. the sharded schemes (``phase_sharded``, after the point queries and
+15. the entries no other phase calls (``phase_entries``), each with
+   ``device`` omitted as a user calls it, so on ``cuda``: first call,
+   three warm ones (the two layered entries one), launches, peak memory,
+   one ``entries`` line each.  Inside the file path's block, onto its
+   target (``phase_entries_mesh``): (a) ``api.interpolate_to_mesh`` from
+   the ``gll`` source as a live mesh with VSV, VSH, VPV, VPH onto the
+   9,925,250 nodes, both lattices sphere-mapped in place and restored bit
+   for bit, the attached fields < 1e-6; (b) ``map_to_ellipse`` from that
+   source stretched by WGS84's first-order ellipticity
+   (``testing.elliptic_mesh``) onto a writable copy of the target's
+   lattice, its radius ratio < 1e-6 of 1 + eps, the base restored; both
+   with their first chunk against the plain path on the sphere-mapped
+   points (values, rtol 1e-5).  After the point queries: (c)
+   ``get_element_weights`` on the slice's first 1,000,000 targets with
+   the mesh's own centroids (bit for bit ``TransferOperator.build``'s
+   elements and coefficients), with the centroids moved a tenth of an
+   element toward the centre (snap off and on; K2's sources recorded:
+   the given ones), again with the own ones (bit for bit the first), and
+   polished (K4, < 1e-8); (d) ``get_element_weights_layered`` on the
+   layered target's 4 x 1,354,261 unique points with each layer's exact
+   20 nearest masked centroids as candidates (K2 not launched, no fewer
+   rows found than an unconstrained build); (e)
+   ``interpolate_to_points_layered`` onto live layered meshes, the
+   source's innermost layer fluid, ``layers="all"`` and ``"nocore"``
+   (3 layers written, the 4th kept), its printed failures the operators'
+   missing rows, within 2e-6 of ``gll_2_gll_layered``'s values of phase
+   13; (f) ``gll_2_points_arrays``, the core of ``query_model`` and
+   ``gll_2_exodus``, at 1,000,000 lat/lon/depth points inside the shell
+   and at the 97,336 nodes of phase 11's target, < 1e-6, first chunk
+   against the plain path;
+16. the sharded schemes (``phase_sharded``, after the entries and
    before the ``gll_big`` source is built), at ``bench.py``'s ``sharded``
    config (the ``gll`` source, the same 10,000,000 device-resident
    targets, 3 parameters, snap, ``device_out=True``): (a)
@@ -127,7 +160,7 @@ each on stdout:
    walls and exchange seconds; then, in this process, the routing owners
    of the first 262,144 points against the twin of K2 and rank 0's pass 1
    on its first 262,144 points against the plain path.
-16. the plotting entries (``phase_viz``, after ``phase_big``, on its
+17. the plotting entries (``phase_viz``, after ``phase_big``, on its
    ``gll_big`` source): a depth slice of 1000 x 1000 lat/lon points at
    1,000 km over the shell's own extent and a cross section of 201 radii
    x 301 points at ``plot_cross_section``'s defaults between two points
@@ -144,7 +177,9 @@ slice's run, as ``launches_file`` in the file path's df32 call, as
 ``launches_big`` in the grid route's df32 run, and as ``launches_exodus``,
 ``launches_exodus_gll``, ``launches_layered`` (its df32 call),
 ``launches_points`` and ``launches_grid2d`` in phases 11-14,
-``launches_sharded`` in (a) of phase 15, ``launches_f64``,
+``launches_entries`` (per entry of phase 15, its last call; the polished
+``get_element_weights`` call apart), ``launches_sharded`` in (a) of
+phase 16, ``launches_f64``,
 ``launches_orders`` (the order-3 and order-6 transfers) and
 ``launches_viz`` (the depth slice); ``orders``: per (order, dim) pair
 its ``ms``, ``group_ms``, ``kernel_ms`` and bound; K1 also with
@@ -167,8 +202,10 @@ regular-grid and ``gll_big`` slice runs warm and profiles each once with
 ``torch.profiler`` (see ``profile``).
 """
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import re
@@ -185,9 +222,12 @@ import torch.distributed as dist
 
 from multimesh_tpu_torch import (TransferOperator, _build, engine, hashing,
                                  testing, utils, utils_profile)
-from multimesh_tpu_torch.config import PREFILTER_M, LocateConfig, Precision
+from multimesh_tpu_torch import api
+from multimesh_tpu_torch.config import (PREFILTER_M, R_EARTH_M, LocateConfig,
+                                        Precision)
 from multimesh_tpu_torch.io import exodus as eio
-from multimesh_tpu_torch.ops import dedup
+from multimesh_tpu_torch.ops import dedup, spherical
+from multimesh_tpu_torch.ops import layers as layer_ops
 from multimesh_tpu_torch.search import locate as _locate
 from multimesh_tpu_torch.core import gll, shape
 from multimesh_tpu_torch.search import grid, knn, nearest, newton, polish
@@ -252,6 +292,16 @@ VIZ_LON = (float(np.rad2deg(0.3)), float(np.rad2deg(1.4)))
 VIZ_XSEC = dict(point_1_lat=30.0, point_1_lng=25.0, point_2_lat=52.0,
                 point_2_lng=72.0)
 VIZ_NRADS, VIZ_NPOINTS, VIZ_MAX_DEPTH_KM = 201, 301, 2800.0
+# phase_entries: interpolate_to_mesh's default parameters; the slice's
+# first targets for get_element_weights, whose search centroids are also
+# moved by a tenth of an element's radial extent toward the shell's
+# centre; lat/lon/depth query points (deg, deg, m) strictly inside the
+# gll source (lat 21.25..61.35, lon 17.19..80.21, depth 0..2.891e6)
+ENTRY_PARAMS = ("VSV", "VSH", "VPV", "VPH")
+ENTRY_WEIGHT_ROWS = 1_000_000
+CENTROID_SHIFT = 0.1
+ENTRY_QUERY_N = 1_000_000
+ENTRY_LLD = ((22.0, 61.0), (18.0, 80.0), (1.0e3, 2.88e6))
 # the sharded schemes' second part: ranks sharing the one card (gloo)
 SHARDED_RANKS = 2
 SHARDED_TIMEOUT_S = 300
@@ -2067,13 +2117,14 @@ def phase_exodus_gll(dev, smi, tgt, tmpdir):
     return launches, k1
 
 
-def _live_mesh(mesh, params, field_kind):
+def _live_mesh(mesh, params, field_kind, fluid=None):
     """make() -> a live mesh object, as a user of salvus would hold it:
     element-nodal points, a dict of element-nodal fields (each parameter a
     scaled copy of the analytic field) and the elemental ``layer`` and
-    ``fluid``.  Every object gets a dict of its own over the same arrays:
-    the engine attaches new arrays, it does not write into these."""
-    nodal, elemental = testing.salvus_fixture_fields(mesh, params, None,
+    ``fluid`` (none fluid unless ``fluid`` flags some).  Every object gets
+    a dict of its own over the same arrays: the engine attaches new
+    arrays, it does not write into these."""
+    nodal, elemental = testing.salvus_fixture_fields(mesh, params, fluid,
                                                      field_kind)
     return lambda: types.SimpleNamespace(points=mesh.points,
                                          element_nodal_fields=dict(nodal),
@@ -2082,7 +2133,8 @@ def _live_mesh(mesh, params, field_kind):
 
 def phase_layered(dev, smi):
     """The layered path on live mesh objects (see the module docstring).
-    Returns the launch counts of its df32 call."""
+    Returns the launch counts of its df32 call and the parameters a warm
+    f32 call wrote (name -> [E, n])."""
     src, tgt = (testing.shell_mesh(**LAYERED_SRC),
                 testing.shell_mesh(**LAYERED_TGT))
     params = list(LAYERED_PARAMS)
@@ -2093,13 +2145,17 @@ def phase_layered(dev, smi):
     truth = [base * (1 + 0.1 * i) for i in range(len(params))]
     del base
 
+    written = {}
+
     def run(entry=engine.gll_2_gll_layered, **kw):
         """One call onto a fresh target (the linear field: a node left
-        unwritten cannot pass): (wall seconds, max rel err by parameter)."""
+        unwritten cannot pass): (wall seconds, max rel err by parameter);
+        the written fields are left in ``written``."""
         new = fresh_target()
         wall = _host_s(lambda: entry(old, new, layers="all",
                                      parameters=params, device=dev,
                                      **kw))[1]
+        written.update((p, new.element_nodal_fields[p]) for p in params)
         return wall, [_rel_np(new.element_nodal_fields[p], t)
                       for p, t in zip(params, truth)]
 
@@ -2112,6 +2168,8 @@ def phase_layered(dev, smi):
         wall, rels = run()
         walls.append(wall)
         launches = read_launches()
+    # the f32 path's values, for phase_entries
+    written_f32 = dict(written)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches["newton_rows"] > 0 and launches["nearest_centroid"] > 0,
           f"a kernel of the layered path was not launched: {launches}")
@@ -2244,7 +2302,29 @@ def phase_layered(dev, smi):
         "newton_rows", "nearest_centroid", "polish_pairs", "apply_pairs")),
         f"a kernel of the layered df32 path was not launched: "
         f"{launches_df32}")
-    return launches_df32
+    return launches_df32, written_f32
+
+
+def _netcdf3_check(ds, params):
+    """``ds.to_netcdf(format="NETCDF3_64BIT")`` (scipy, no HDF5) into a
+    temporary directory, read back with ``scipy.io.netcdf_file``: each
+    variable and coordinate against ``ds``'s, value for value."""
+    from scipy.io import netcdf_file
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        path = os.path.join(tmpdir, "grid.nc")
+        t0 = time.perf_counter()
+        ds.to_netcdf(path, format="NETCDF3_64BIT")
+        wall = time.perf_counter() - t0
+        with netcdf_file(path, "r", mmap=False) as f:
+            var = f.variables
+            same = all(np.array_equal(var[p].data, ds.data[p])
+                       for p in params)
+            coords = all(np.array_equal(var[name].data, ds.coords[name])
+                         for name in ("depth", "latitude", "longitude"))
+        size = os.path.getsize(path)
+    return {"format": "NETCDF3_64BIT", "bytes": size, "write_s": wall,
+            "variables_equal": same, "coordinates_equal": coords}
 
 
 def phase_points(dev, smi, src):
@@ -2355,6 +2435,7 @@ def phase_points(dev, smi, src):
         nonzero &= bool((ds[p][inside] != 0).all())
         rels.append(_rel_np(ds[p][inside], truth[inside] * (1 + 0.1 * i)))
     n_points = int(np.prod(shape3))
+    netcdf = _netcdf3_check(ds, params)
     emit({"phase": "points", "nvidia_smi": smi, "n_points": n_points,
           "elements": src.nelem, "params": len(params),
           "share_outside": float(outside.mean()),
@@ -2367,7 +2448,9 @@ def phase_points(dev, smi, src):
           "stages_s": stages,
           "outside_rows_zero": zeros, "inside_rows_nonzero": nonzero,
           "max_rel_err_inside": rels, "peak_mem_gb": peak_gb,
-          "plain_chunk": plain_chunk})
+          "plain_chunk": plain_chunk, "to_netcdf": netcdf})
+    check(netcdf["variables_equal"] and netcdf["coordinates_equal"],
+          f"the NETCDF3 file does not read back as written: {netcdf}")
     check(zeros, "a grid point outside the shell is not zero")
     check(0.05 < plain_chunk["found"] < 0.95 and plain_chunk["n_retry"] > 0,
           f"the plain path's chunk does not mix inside and outside rows: "
@@ -2427,6 +2510,506 @@ def phase_points(dev, smi, src):
     check(rel2 < 1e-6, f"grid2d max rel err {rel2:.3g} >= 1e-6")
     check(vdiff <= 1e-5, f"grid2d plain path values differ by {vdiff:.3g}")
     return launches, launches2d
+
+
+def _entry_walls(fn, n_warm=3, setup=None):
+    """The first call of ``fn`` and ``n_warm`` warm ones, each after
+    ``setup()`` (not timed), the counts set to 0 just before it, its wall
+    ending in a device sync: (the last result, the first wall, the warm
+    walls, the launches of the last call, the peak device memory of the
+    warm calls in GB, or of the first where there is none)."""
+    walls = []
+    for i in range(1 + n_warm):
+        if setup is not None:
+            setup()
+        if i <= 1:
+            torch.cuda.reset_peak_memory_stats()
+        out = None  # the last result goes before the next call
+        reset_launches()
+        out, wall = _host_s(fn)
+        launches = read_launches()
+        walls.append(wall)
+    return (out, walls[0], walls[1:], launches,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _entry_line(smi, entry, first, walls, launches, peak_gb, **rest):
+    """One ``entries`` line: the entry's walls, launches and peak, and
+    ``rest`` (its checks' figures)."""
+    median, spread = _median_spread(walls)
+    emit({"phase": "entries", "entry": entry, "nvidia_smi": smi,
+          "device_argument": "omitted", "wall_first_s": first,
+          "walls_warm_s": walls, "wall_warm_median_s": median,
+          "wall_warm_spread_s": spread, "launches": launches,
+          "peak_mem_gb": peak_gb, **rest})
+
+
+def _check_launched(entry, launches, kernels, absent=()):
+    for k in kernels:
+        check(launches[k] > 0, f"{entry}: {k} was not launched: {launches}")
+    for k in absent:
+        check(launches[k] == 0, f"{entry}: {k} was launched: {launches}")
+
+
+def _plain_chunk(dev, src_points, chunk, fields, run_vals, **kw):
+    """``chunk``'s targets through the kernels and through the plain twins
+    (``TransferOperator.build(..., **kw)``, both on the card) against
+    ``run_vals`` [rows, P], the entry's values there: the shares of rows
+    whose found flag and element agree, the largest relative difference of
+    the plain values from the entry's on the rows both found, and the
+    share of rows where the kernels' values built on the chunk alone equal
+    the entry's (to f64 rounding: ``run_vals`` may be derived from them).
+    Values, not elements, are held: a target node on a face that two
+    source elements share is accepted by either."""
+    k_op = TransferOperator.build(src_points, chunk, device=dev, **kw)
+    p_op = TransferOperator.build(src_points, chunk, device=dev, plain=True,
+                                  **kw)
+    fields = torch.as_tensor(fields, device=dev)
+    k_vals = k_op.apply(fields).double().reshape(len(chunk), -1)
+    p_vals = p_op.apply(fields).double().reshape(len(chunk), -1)
+    run = torch.as_tensor(run_vals, device=dev).double().reshape(
+        len(chunk), -1)
+    found_agree = k_op.found == p_op.found
+    same = found_agree & (k_op.elements == p_op.elements)
+    hit = found_agree & p_op.found
+    return {"rows": len(chunk),
+            "found_agree": float(found_agree.double().mean()),
+            "elements_agree": float(same.double().mean()),
+            "max_rel_diff": float(
+                ((run - p_vals).abs() / p_vals.abs())[hit].max()),
+            "rows_equal_run": float(
+                ((k_vals - run).abs() <= 1e-12 * run.abs())
+                .all(dim=-1).double().mean())}
+
+
+def _hold_plain(entry, plain):
+    check(plain["found_agree"] >= 0.999, f"{entry}: the plain path agrees "
+          f"on found {plain['found_agree']:.6f}")
+    check(plain["max_rel_diff"] <= 1e-5, f"{entry}: the plain path's "
+          f"values differ by {plain['max_rel_diff']:.3g}")
+    check(plain["rows_equal_run"] >= 0.999, f"{entry}: the chunk built "
+          f"alone equals the entry's rows on {plain['rows_equal_run']:.6f}")
+
+
+def _sphere_mapped(points, z_node_1d):
+    """A copy of ``points`` mapped to the sphere as ``ops.spherical``
+    maps a mesh (radius 6.371e6 * ``z_node_1d``)."""
+    mesh = types.SimpleNamespace(
+        points=points.copy(), element_nodal_fields={"z_node_1D": z_node_1d})
+    spherical.map_to_sphere(mesh)
+    return mesh.points
+
+
+def phase_entries_mesh(dev, smi, src, tgt):
+    """``api.interpolate_to_mesh`` and ``ops.spherical.map_to_ellipse``
+    from the ``gll`` source onto the file target, ``device`` omitted (see
+    the module docstring).  Returns the launch counts of each entry's last
+    call."""
+    src0, tgt0 = src.points.copy(), tgt.points.copy()
+    rows = slice(0, ROWS)
+
+    # (a) both lattices mapped to spheres in place, the four parameters
+    # interpolated and attached, the geometry restored
+    params = list(ENTRY_PARAMS)
+    old = _live_mesh(src, ENTRY_PARAMS, "smooth")()
+    fresh_new = _live_mesh(tgt, ENTRY_PARAMS, "linear")
+
+    def run_a():
+        new = fresh_new()
+        api.interpolate_to_mesh(old, new)
+        return new
+
+    clear_caches()
+    new, first, walls, launches_a, peak = _entry_walls(run_a)
+    restored = bool(np.array_equal(src.points, src0)
+                    and np.array_equal(tgt.points, tgt0))
+    base = testing.smooth_field(tgt.points)
+    rels = [_rel_np(new.element_nodal_fields[p], base * (1 + 0.1 * i))
+            for i, p in enumerate(params)]
+    del base
+    z_tgt = new.element_nodal_fields["z_node_1D"].reshape(-1)
+    plain_a = _plain_chunk(
+        dev, _sphere_mapped(src0, old.element_nodal_fields["z_node_1D"]),
+        _sphere_mapped(tgt0.reshape(-1, 3)[rows], z_tgt[rows]),
+        np.stack([old.element_nodal_fields[p] for p in params]),
+        np.stack([new.element_nodal_fields[p].reshape(-1)[rows]
+                  for p in params], axis=-1),
+        order=src.order, cfg=engine.DEFAULT_LOCATE, fallback="sentinel",
+        prefilter_m=PREFILTER_M)
+    _entry_line(smi, "interpolate_to_mesh", first, walls, launches_a, peak,
+                call="api.interpolate_to_mesh(old, new)",
+                source_elements=src.nelem, target_nodes=int(z_tgt.size),
+                params=len(params), max_rel_err=rels,
+                lattices_restored=restored, plain_chunk=plain_a)
+    del new
+    check(restored, "interpolate_to_mesh left a lattice changed")
+    check(max(rels) < 1e-6, f"interpolate_to_mesh max rel errs {rels}")
+    _hold_plain("interpolate_to_mesh", plain_a)
+    _check_launched("interpolate_to_mesh", launches_a,
+                    ("newton_rows", "nearest_centroid"))
+
+    # (b) the source stretched to the WGS84 ellipsoid's first-order shape,
+    # its radius ratio carried onto a writable copy of the target
+    base = testing.elliptic_mesh(src)
+    base0 = base.points.copy()
+    target = testing.elliptic_mesh(tgt, flattening=0.0)
+    z_b = base.element_nodal_fields["z_node_1D"]
+    z_t = target.element_nodal_fields["z_node_1D"]
+
+    def restore_target():
+        target.points[...] = tgt0
+
+    _, first, walls, launches_b, peak = _entry_walls(
+        lambda: spherical.map_to_ellipse(base, target), setup=restore_target)
+    want = 1.0 + testing.ellipticity(tgt0)
+    ratio = np.linalg.norm(target.points, axis=-1) / (R_EARTH_M * z_t)
+    ratio_err = float(np.max(np.abs(ratio - want) / want))
+    base_restored = bool(np.array_equal(base.points, base0))
+    sphere_rows = _sphere_mapped(tgt0.reshape(-1, 3)[rows],
+                                 z_t.reshape(-1)[rows])
+    run_ratio = (np.linalg.norm(target.points.reshape(-1, 3)[rows], axis=-1)
+                 / np.linalg.norm(sphere_rows, axis=-1))
+    plain_b = _plain_chunk(
+        dev, _sphere_mapped(base0, z_b), sphere_rows,
+        (np.linalg.norm(base0, axis=-1) / (R_EARTH_M * z_b))[None],
+        run_ratio[:, None], order=src.order, cfg=engine.DEFAULT_LOCATE,
+        fallback="snap", prefilter_m=PREFILTER_M)
+    _entry_line(smi, "map_to_ellipse", first, walls, launches_b, peak,
+                call="ops.spherical.map_to_ellipse(base, target)",
+                flattening=testing.WGS84_FLATTENING,
+                source_elements=src.nelem, target_nodes=int(z_t.size),
+                ratio_max_rel_err=ratio_err,
+                ratio_range=[float(ratio.min()), float(ratio.max())],
+                base_restored=base_restored, plain_chunk=plain_b)
+    check(base_restored, "map_to_ellipse left the base's lattice changed")
+    check(ratio_err < 1e-6, f"map_to_ellipse radius ratio off 1 + eps by "
+          f"{ratio_err:.3g}")
+    _hold_plain("map_to_ellipse", plain_b)
+    _check_launched("map_to_ellipse", launches_b,
+                    ("newton_rows", "nearest_centroid"))
+    return {"interpolate_to_mesh": launches_a, "map_to_ellipse": launches_b}
+
+
+def _coeffs_err(dev, el, co, field, truth):
+    """Host (elements, coeffs) of a point cloud against the analytic field:
+    (the largest relative error of coeffs . field over the found rows, the
+    found rows, whether every row without an element has zero coeffs)."""
+    el_d = torch.as_tensor(el, device=dev).long()
+    co_d = torch.as_tensor(co, device=dev)
+    found = el_d >= 0
+    vals = (field[el_d.clamp_min(0)] * co_d.double()).sum(dim=-1)
+    rel = ((vals - truth).abs() / truth.abs())[found]
+    return (float(rel.max()) if rel.numel() else 0.0, int(found.sum()),
+            bool((co_d[~found] == 0).all()))
+
+
+def phase_entries(dev, smi, src, layered_written):
+    """``engine.get_element_weights``, ``get_element_weights_layered``,
+    ``interpolate_to_points_layered`` and ``gll_2_points_arrays``,
+    ``device`` omitted (see the module docstring); ``layered_written`` is
+    what ``phase_layered``'s f32 call wrote.  Returns the launch counts of
+    each entry's last call."""
+    launches = {}
+    clear_caches()
+
+    # (c) the slice's first targets, sentinel; the search centroids the
+    # prep's own, then moved toward the centre (snap off and on), then the
+    # prep's again; once polished.  K2's sources are recorded in place.
+    pts = testing.shell_targets(N_TARGETS, seed=0)[:ENTRY_WEIGHT_ROWS].copy()
+    field = torch.as_tensor(testing.element_nodal_field(src), device=dev)
+    truth = torch.as_tensor(testing.smooth_field(pts), device=dev)
+    cent = src.points.mean(axis=1)
+    radius = np.linalg.norm(src.points, axis=-1)
+    step = CENTROID_SHIFT * (radius.max(axis=1) - radius.min(axis=1))
+    shifted = cent * (1.0 - step / np.linalg.norm(cent, axis=1))[:, None]
+    node_means = torch.as_tensor(cent, device=dev)
+    shifted_d = torch.as_tensor(shifted, device=dev)
+    ranked = []
+    nearest_centroid = knn.nearest_centroid
+
+    def recording(sources, queries, **kw):
+        ranked.append(sources)
+        return nearest_centroid(sources, queries, **kw)
+
+    def weights(centroids, **kw):
+        return engine.get_element_weights(src.points, src.order, centroids,
+                                          pts, **kw)
+
+    def ranked_only(cents):
+        out = bool(ranked) and all(
+            s.shape == cents.shape
+            and torch.allclose(s, cents, rtol=1e-12, atol=0) for s in ranked)
+        ranked.clear()
+        return out
+
+    knn.nearest_centroid = recording
+    try:
+        (el, co), first, walls, launches_c, peak = _entry_walls(
+            lambda: weights(None))
+        own_ranked = ranked_only(node_means)
+        rel, found, zero = _coeffs_err(dev, el, co, field, truth)
+        op = TransferOperator.build(
+            src.points, pts, order=src.order,
+            cfg=LocateConfig(nelem_to_search=25, accept_tol=1.05),
+            fallback="sentinel", prefilter_m=PREFILTER_M, device=dev)
+        equal_build = bool(np.array_equal(el, op.elements.cpu().numpy())
+                           and np.array_equal(co, op.weights.cpu().numpy()))
+        del op
+        ranked.clear()
+        moved = {}
+        for snap in (False, True):
+            reset_launches()
+            s_el, s_co = weights(shifted, snap_to_nearest=snap)
+            n = read_launches()
+            s_rel, s_found, s_zero = _coeffs_err(dev, s_el, s_co, field,
+                                                 truth)
+            moved[f"snap_{snap}".lower()] = {
+                "launches": n, "max_rel_err": s_rel, "found": s_found,
+                "sentinel_rows_zero": s_zero,
+                "elements_differ": int((s_el != el).sum()),
+                "ranked_given_centroids": ranked_only(shifted_d)}
+            del s_el, s_co
+        # the prep's cache entry does not keep the given centroids
+        again_el, again_co = weights(None)
+        no_leak = bool(np.array_equal(again_el, el)
+                       and np.array_equal(again_co, co)
+                       and ranked_only(node_means))
+        del again_el, again_co, el, co
+    finally:
+        knn.nearest_centroid = nearest_centroid
+    os.environ["MMT_DF32_POLISH"] = "1"
+    try:
+        reset_launches()
+        (p_el, p_co), p_wall = _host_s(lambda: weights(None))
+        launches_df32 = read_launches()
+    finally:
+        del os.environ["MMT_DF32_POLISH"]
+    p_rel, p_found, p_zero = _coeffs_err(dev, p_el, p_co, field, truth)
+    p_dtype = str(p_co.dtype)
+    del p_el, p_co
+    _entry_line(smi, "get_element_weights", first, walls, launches_c, peak,
+                call="engine.get_element_weights(src.points, 4, centroids, "
+                     "points)", points=len(pts), source_elements=src.nelem,
+                max_rel_err=rel, found=found, sentinel_rows=len(pts) - found,
+                sentinel_rows_zero=zero, equal_transfer_operator=equal_build,
+                ranked_own_centroids=own_ranked, moved_centroids=moved,
+                next_call_equal_first=no_leak,
+                df32={"wall_s": p_wall, "launches": launches_df32,
+                      "max_rel_err": p_rel, "found": p_found,
+                      "sentinel_rows_zero": p_zero, "coeffs_dtype": p_dtype})
+    check(equal_build, "get_element_weights differs from "
+          "TransferOperator.build on the same inputs")
+    check(own_ranked and no_leak, "get_element_weights without centroids "
+          "did not rank the mesh's own, or differs after a call with moved "
+          "ones")
+    check(found == p_found == len(pts) and zero and p_zero,
+          f"get_element_weights found {found} / {p_found} of {len(pts)}")
+    check(rel < 1e-6 and p_rel < 1e-8,
+          f"get_element_weights max rel err {rel:.3g}, polished {p_rel:.3g}")
+    for key, m in moved.items():
+        check(m["ranked_given_centroids"], f"get_element_weights {key}: K2 "
+              "did not rank the given centroids")
+        check(m["found"] == len(pts) and m["max_rel_err"] < 1e-6,
+              f"get_element_weights with moved centroids, {key}: {m}")
+        _check_launched(f"get_element_weights {key}", m["launches"],
+                        ("newton_rows", "nearest_centroid"))
+    _check_launched("get_element_weights", launches_c,
+                    ("newton_rows", "nearest_centroid"))
+    _check_launched("get_element_weights polished", launches_df32,
+                    ("newton_rows", "nearest_centroid", "polish_pairs"))
+    launches["get_element_weights"] = launches_c
+    launches["get_element_weights_df32"] = launches_df32
+    del pts, field, truth
+
+    # (d) the layered pair's per-layer unique target points, the caller's
+    # candidates: each layer's exact 20 nearest masked centroids
+    lsrc, ltgt = (testing.shell_mesh(**LAYERED_SRC),
+                  testing.shell_mesh(**LAYERED_TGT))
+    ids = np.sort(np.unique(lsrc.layer_id))[::-1]
+    smasks = layer_ops.layer_masks(lsrc.layer_id, ids)
+    tmasks = layer_ops.layer_masks(ltgt.layer_id, ids)
+    coords = dedup.unique_points_per_layer(ltgt.points, tmasks)
+    near = {
+        layer: knn.knn(
+            torch.as_tensor(lsrc.points[smasks[layer]].mean(axis=1),
+                            device=dev),
+            torch.as_tensor(coords[layer][0], device=dev), 20)[1].cpu().numpy()
+        for layer in coords}
+    original = types.SimpleNamespace(points=lsrc.points)
+    (el, co), first, walls, launches_d, peak = _entry_walls(
+        lambda: engine.get_element_weights_layered(
+            coords, near, original, smasks, from_gll_order=lsrc.order),
+        n_warm=1)
+    lfield = testing.element_nodal_field(lsrc)
+    per_layer = {}
+    for layer, (upts, _) in coords.items():
+        rel, found, zero = _coeffs_err(
+            dev, el[layer], co[layer],
+            torch.as_tensor(lfield[smasks[layer]], device=dev),
+            torch.as_tensor(testing.smooth_field(upts), device=dev))
+        free = TransferOperator.build(
+            lsrc.points[smasks[layer]], upts, order=lsrc.order,
+            cfg=LocateConfig(accept_tol=1.03), fallback="sentinel",
+            device=dev)
+        per_layer[layer] = {
+            "points": len(upts), "source_elements": int(smasks[layer].sum()),
+            "max_id": int(el[layer].max()), "max_rel_err": rel,
+            "found": found, "found_unconstrained": int(free.found.sum()),
+            "sentinel_rows_zero": zero,
+            "elements_differ_unconstrained": int(
+                (el[layer] != free.elements.cpu().numpy()).sum())}
+        del free
+    del el, co, near
+    _entry_line(smi, "get_element_weights_layered", first, walls,
+                launches_d, peak,
+                call="engine.get_element_weights_layered(coords, "
+                     "nearest_elements, mesh, masks, from_gll_order=4)",
+                k=20, layers=per_layer)
+    for layer, c in per_layer.items():
+        check(c["max_id"] < c["source_elements"], f"layer {layer}: element "
+              f"{c['max_id']} outside its {c['source_elements']}")
+        check(c["max_rel_err"] < 1e-6 and c["sentinel_rows_zero"],
+              f"get_element_weights_layered layer {layer}: {c}")
+        check(c["found"] >= c["found_unconstrained"],
+              f"get_element_weights_layered layer {layer} found fewer rows "
+              f"than an unconstrained build: {c}")
+    _check_launched("get_element_weights_layered", launches_d,
+                    ("newton_rows",), absent=("nearest_centroid",))
+    launches["get_element_weights_layered"] = launches_d
+    del coords
+
+    # (e) onto live layered meshes; the source's innermost layer is fluid,
+    # so "nocore" writes 3 of the 4 layers and leaves the core's nodes be
+    params = list(LAYERED_PARAMS)
+    fluid = (lsrc.layer_id == lsrc.layer_id.min()).astype(np.float64)
+    old = _live_mesh(lsrc, LAYERED_PARAMS, "smooth", fluid)()
+    fresh = _live_mesh(ltgt, LAYERED_PARAMS, "linear")
+    before = fresh().element_nodal_fields
+    base = testing.smooth_field(ltgt.points)
+    built = {}
+    layered_operators = engine._layered_operators
+
+    def recording_ops(*a, **k):
+        built["ops"] = layered_operators(*a, **k)
+        return built["ops"]
+
+    def run_e(spec):
+        new, printed = fresh(), io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            engine.interpolate_to_points_layered(old, new, params,
+                                                 layers=spec)
+        return new, printed.getvalue()
+
+    engine._layered_operators = recording_ops
+    try:
+        specs = {}
+        for spec, n_warm in (("all", 1), ("nocore", 0)):
+            (new, printed), first, walls, n, peak = _entry_walls(
+                lambda: run_e(spec), n_warm=n_warm)
+            ops, _, tgt_masks = built["ops"]
+            said = re.search(r"(\d+) points could not be interpolated",
+                             printed)
+            written = np.zeros(ltgt.nelem, bool)
+            missing = np.zeros((ltgt.nelem, ltgt.n_gll), bool)
+            for layer, op in ops.items():
+                written |= tgt_masks[layer]
+                lost = (~op.found)[op.recon.long()].cpu().numpy()
+                missing[tgt_masks[layer]] = lost.reshape(-1, ltgt.n_gll)
+            good = written[:, None] & ~missing
+            rels, vs_layered, zeros, kept = [], [], True, True
+            for i, p in enumerate(params):
+                got = new.element_nodal_fields[p]
+                rels.append(_rel_np(got[good], base[good] * (1 + 0.1 * i)))
+                vs_layered.append(_rel_np(got[good],
+                                          layered_written[p][good]))
+                zeros &= bool((got[missing] == 0).all())
+                kept &= bool(np.array_equal(got[~written],
+                                            before[p][~written]))
+            specs[spec] = {
+                "wall_first_s": first, "walls_warm_s": walls,
+                "launches": n, "peak_mem_gb": peak,
+                "layers": sorted(ops), "written_slots": int(
+                    written.sum()) * ltgt.n_gll,
+                "num_missing": sum(op.num_missing for op in ops.values()),
+                "num_failed_printed": int(said.group(1)) if said else 0,
+                "missing_slots": int(missing.sum()),
+                "missing_slots_zero": zeros, "unwritten_kept": kept,
+                "max_rel_err": rels,
+                "max_rel_diff_gll_2_gll_layered": vs_layered}
+            del new
+    finally:
+        engine._layered_operators = layered_operators
+    del base, before, built
+    top = specs["all"]
+    _entry_line(smi, "interpolate_to_points_layered", top["wall_first_s"],
+                top["walls_warm_s"], top["launches"], top["peak_mem_gb"],
+                call="engine.interpolate_to_points_layered(old, new, "
+                     "params, layers=spec)", slots=ltgt.nelem * ltgt.n_gll,
+                params=len(params), specs=specs)
+    for spec, c in specs.items():
+        check(c["num_failed_printed"] == c["num_missing"],
+              f"interpolate_to_points_layered {spec}: printed "
+              f"{c['num_failed_printed']} failed, operators miss "
+              f"{c['num_missing']}")
+        check(max(c["max_rel_err"]) < 1e-6 and c["missing_slots_zero"]
+              and c["unwritten_kept"],
+              f"interpolate_to_points_layered {spec}: {c}")
+        check(max(c["max_rel_diff_gll_2_gll_layered"]) <= 2e-6,
+              f"interpolate_to_points_layered {spec} against "
+              f"gll_2_gll_layered: {c['max_rel_diff_gll_2_gll_layered']}")
+        _check_launched(f"interpolate_to_points_layered {spec}",
+                        c["launches"], ("newton_rows", "nearest_centroid"))
+    check(specs["nocore"]["layers"]
+          == sorted(str(i) for i in ids if i != ids.min()),
+          f"nocore wrote layers {specs['nocore']['layers']}")
+    launches["interpolate_to_points_layered"] = top["launches"]
+    del old, fresh, lsrc, ltgt
+
+    # (f) the gll source's [E, P, n] arrays at lat/lon/depth points, as
+    # query_model locates them, and at the Exodus target's nodes, as
+    # gll_2_exodus does
+    gll_data = np.stack([testing.element_nodal_field(src) * (1 + 0.1 * i)
+                         for i in range(3)], axis=1)
+    rng = np.random.default_rng(7)
+    lld = np.stack([rng.uniform(lo, hi, ENTRY_QUERY_N)
+                    for lo, hi in ENTRY_LLD], axis=-1)
+    cases = {"query_model": utils.latlondepth_to_xyz(lld),
+             "gll_2_exodus": testing.shell_mesh(**EXO_TGT).vertices}
+    out = {}
+    for name, xyz in cases.items():
+        vals, first, walls, n, peak = _entry_walls(
+            lambda: engine.gll_2_points_arrays(src.points, gll_data, xyz))
+        rels = max_rel_columns(vals, torch.as_tensor(
+            testing.smooth_field(xyz), device=dev))
+        plain = _plain_chunk(
+            dev, src.points, xyz[:ROWS], np.moveaxis(gll_data, 1, 0),
+            vals[:ROWS], order=src.order,
+            cfg=engine._locate_cfg(20, accept_tol=1.04),
+            fallback="fixed_ref", use_aabb=True, prefilter_m=PREFILTER_M)
+        out[name] = {"points": len(xyz), "wall_first_s": first,
+                     "walls_warm_s": walls, "launches": n,
+                     "peak_mem_gb": peak, "device": str(vals.device),
+                     "shape": list(vals.shape),
+                     "finite": bool(torch.isfinite(vals).all()),
+                     "max_rel_err": rels, "plain_chunk": plain}
+        del vals
+    top = out["query_model"]
+    _entry_line(smi, "gll_2_points_arrays", top["wall_first_s"],
+                top["walls_warm_s"], top["launches"], top["peak_mem_gb"],
+                call="engine.gll_2_points_arrays(src.points, gll_data, "
+                     "points)", source_elements=src.nelem, params=3,
+                cases=out)
+    for name, c in out.items():
+        check(c["device"].startswith("cuda") and c["finite"]
+              and c["shape"] == [c["points"], 3],
+              f"gll_2_points_arrays {name}: {c['device']} {c['shape']}")
+        check(max(c["max_rel_err"]) < 1e-6,
+              f"gll_2_points_arrays {name} max rel errs {c['max_rel_err']}")
+        _hold_plain(f"gll_2_points_arrays {name}", c["plain_chunk"])
+        _check_launched(f"gll_2_points_arrays {name}", c["launches"],
+                        ("newton_rows", "nearest_centroid"))
+    launches["gll_2_points_arrays"] = top["launches"]
+    return launches
 
 
 def _sharded_walls(fn):
@@ -2764,14 +3347,19 @@ def main():
         clear_caches()
         launches_e2g, k1_sparse = phase_exodus_gll(dev, smi, tgt, tmpdir)
         k1.update(k1_sparse)
+        clear_caches()
+        launches_entries = phase_entries_mesh(dev, smi, src, tgt)
         del tgt
         clear_caches()
         launches_exo = phase_exodus(dev, smi, tmpdir)
     phase_native(dev, smi)
     clear_caches()
-    launches_layered = phase_layered(dev, smi)
+    launches_layered, layered_written = phase_layered(dev, smi)
     clear_caches()
     launches_points, launches_2d = phase_points(dev, smi, src)
+    clear_caches()
+    launches_entries.update(phase_entries(dev, smi, src, layered_written))
+    del layered_written
     clear_caches()
     launches_sharded = phase_sharded(dev, smi, src, launches_slice)
     # the small case's tensors and caches go before the 499,200-element one
@@ -2803,6 +3391,8 @@ def main():
         entry["launches_sharded"] = launches_sharded[name]
         entry["launches_f64"] = launches_f64[name]
         entry["launches_viz"] = launches_viz[name]
+        entry["launches_entries"] = {e: n[name]
+                                     for e, n in launches_entries.items()}
         entry["launches_orders"] = {o: n[name]
                                     for o, n in launches_orders.items()}
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]

@@ -8,6 +8,7 @@ arguments give the same arrays as the JAX package's fixtures.
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 
@@ -293,6 +294,34 @@ def write_exodus_fixture(
         canonical_order=True,
     )
     return nodal
+
+
+# WGS84's flattening: an elliptic stretch of a spherical fixture
+WGS84_FLATTENING = 1.0 / 298.257
+
+
+def ellipticity(points: np.ndarray,
+                flattening: float = WGS84_FLATTENING) -> np.ndarray:
+    """eps(theta) = f (1/3 - cos^2 theta) at ``points`` [..., 3], theta
+    the colatitude: to first order in f, the ellipsoid of flattening f
+    with the sphere's mean radius lies at r = r_sphere (1 + eps)."""
+    r = np.linalg.norm(points, axis=-1)
+    cos = np.divide(points[..., 2], r, out=np.zeros_like(r), where=r > 0)
+    return flattening * (1.0 / 3.0 - cos**2)
+
+
+def elliptic_mesh(mesh: StructuredMesh,
+                  flattening: float = WGS84_FLATTENING):
+    """A live mesh object for ``ops.spherical``: a copy of ``mesh``'s
+    points stretched radially by 1 + ``ellipticity``, ``shape_order``,
+    and ``z_node_1D`` the unstretched radius over 6.371e6 (spherical).
+    ``flattening=0`` gives the spherical mesh itself, on a writable copy
+    of its lattice."""
+    r = np.linalg.norm(mesh.points, axis=-1)
+    stretch = 1.0 + ellipticity(mesh.points, flattening)
+    return types.SimpleNamespace(
+        points=mesh.points * stretch[..., None], shape_order=mesh.order,
+        element_nodal_fields={"z_node_1D": r / 6.371e6})
 
 
 def shell_targets(n_points: int, seed: int = 0) -> np.ndarray:

@@ -429,3 +429,28 @@ def test_map_to_ellipse_matches_jax_and_restores_the_base():
         tsph.map_to_ellipse(tb, tt2, device="meta")
     np.testing.assert_array_equal(tb.points, before)
     np.testing.assert_array_equal(tt2.points, tgt.points)
+
+
+def test_map_to_ellipse_carries_the_wgs84_ellipticity():
+    """``testing.elliptic_mesh``'s base (radius 1 + eps(theta) times the
+    sphere's, WGS84's flattening) onto a spherical order-4 target through
+    both packages: the port's target against the JAX package's (the f32
+    path's grade), its radius ratio against 1 + eps at every node (an f32
+    apply of a field near 1: ~4e-7 here), the base restored bit for bit."""
+    base = tmt.shell_mesh(n_lat=3, n_lon=3, n_rad=2, order=4)
+    tgt = tmt.shell_mesh(n_lat=3, n_lon=3, n_rad=2, order=4, r_inner=3.7e6,
+                         r_outer=6.2e6, lat_extent=(0.58, 1.12),
+                         lon_extent=(0.38, 1.32))
+    tb, tt = tmt.elliptic_mesh(base), tmt.elliptic_mesh(tgt, 0.0)
+    jb, jt = tmt.elliptic_mesh(base), tmt.elliptic_mesh(tgt, 0.0)
+    before = tb.points.copy()
+    np.testing.assert_array_equal(tt.points, tgt.points)
+    tsph.map_to_ellipse(tb, tt, device="cpu")
+    jsph.map_to_ellipse(jb, jt)
+    np.testing.assert_array_equal(tb.points, before)
+    np.testing.assert_allclose(tt.points, jt.points, rtol=2e-6)
+    ratio = (np.linalg.norm(tt.points, axis=-1)
+             / (R_EARTH_M * tt.element_nodal_fields["z_node_1D"]))
+    want = 1.0 + tmt.ellipticity(tgt.points)
+    assert np.ptp(want) > 1.5e-3  # the target spans half of f
+    np.testing.assert_allclose(ratio, want, rtol=1e-6)
