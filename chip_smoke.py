@@ -1409,8 +1409,8 @@ def phase_file(case, smi):
     del op
 
     # (e) the stage seconds of a first call (caches emptied) and of a
-    # warm one after it, under MMT_PROFILE=1; its device syncs serialise
-    # the stages, so each call's own wall goes beside its stages
+    # warm one after it, under MMT_PROFILE=1 (stages timed by CUDA events,
+    # inclusive), each call's own wall beside its stages
     clear_caches()
     os.environ["MMT_PROFILE"] = "1"
     try:
@@ -2174,7 +2174,7 @@ def phase_layered(dev, smi):
     check(launches["newton_rows"] > 0 and launches["nearest_centroid"] > 0,
           f"a kernel of the layered path was not launched: {launches}")
 
-    # the stage seconds of one warm call (its syncs serialise the stages)
+    # the stage seconds of one warm call
     os.environ["MMT_PROFILE"] = "1"
     try:
         utils_profile.reset_stages()

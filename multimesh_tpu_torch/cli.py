@@ -9,13 +9,17 @@ takes the place of the JAX package's ``--platform`` and is passed to the
 engine entry each command calls.
 
 Entry point:  python -m multimesh_tpu_torch.cli <command> [options]
-(installed as ``multimesh_tpu_torch`` via setup.py).
+(installed as ``multimesh_tpu_torch`` via setup.py).  With
+``MMT_PROFILE`` set, a command ends by printing its stage and counter
+table on standard error (``utils_profile.report``).
 """
 from __future__ import annotations
 
 import time
 
 import click
+
+from . import utils_profile
 
 
 def _report(start: float):
@@ -24,6 +28,8 @@ def _report(start: float):
         click.echo(f"Finished in time: {runtime / 60:.3f} minutes")
     else:
         click.echo(f"Finished in time: {runtime:.3f} seconds")
+    if utils_profile.profiling_enabled():
+        utils_profile.report()
 
 
 def _params(params: str):

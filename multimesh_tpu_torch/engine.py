@@ -269,11 +269,12 @@ def transfer_arrays(
 
     op = None
     if stored_array and TransferOperator.exists(stored_array):
-        try:
-            op = TransferOperator.load(stored_array, fingerprint=fp,
-                                       device=device)
-        except ValueError as exc:
-            print(f"Ignoring stored operator: {exc}")
+        with stage_timer("g2g.load_operator"):
+            try:
+                op = TransferOperator.load(stored_array, fingerprint=fp,
+                                           device=device)
+            except ValueError as exc:
+                print(f"Ignoring stored operator: {exc}")
         if op is not None and op.recon is None:
             # a recon computed here need not be the ordering the stored
             # rows were built on: expanding with it could scramble values
@@ -303,19 +304,22 @@ def transfer_arrays(
             device=device,
         )
         if stored_array:
-            op.save(stored_array, fingerprint=fp)
+            with stage_timer("g2g.save_operator"):
+                op.save(stored_array, fingerprint=fp)
 
     fields = np.ascontiguousarray(np.moveaxis(src_data, 1, 0))  # [P, E, n]
-    with stage_timer("g2g.apply") as t:
+    with stage_timer("g2g.apply"):
         # UNIQUE values only, as a list of device chunks: reconstruction
         # to the ~2x larger slot array happens on the host, streamed
         # chunk by chunk below
         chunks, CH = op.apply(fields, out_chunks=True)
-        t.sync(chunks[0])
     # NaN audit: one device reduction over the chunks and one host read,
     # before anything is written (expansion cannot introduce NaNs, so
     # auditing the unique values covers the full result)
-    if bool(torch.stack([torch.isnan(c).any() for c in chunks]).any()):
+    with stage_timer("g2g.nan_audit"):
+        has_nan = bool(torch.stack([torch.isnan(c).any()
+                                    for c in chunks]).any())
+    if has_nan:
         raise FloatingPointError(
             "interpolation produced NaNs; check source mesh/fields"
         )
@@ -421,7 +425,8 @@ def _stream_expand_write(
                      n_steps=-(-n_elem // blk))
     prev_e = 0
     for j in range(len(chunks)):
-        wait(j)
+        with stage_timer("g2g.pull_wait"):
+            wait(j)
         # expand/repair/write all elements newly covered by chunk j.  The
         # expansion converts to f64 in the same pass -- fluid /
         # reverted-solid elements then keep their original values
@@ -803,7 +808,7 @@ def exodus_2_gll_arrays(
     op = _exodus_operator(corner_nodes, coords.reshape(-1, dim),
                           nelem_to_search, device)
     # all parameters in ONE device pass
-    with stage_timer("e2g.apply") as t:
+    with stage_timer("e2g.apply"):
         # Relayout to the target layout [npoints, F, n_gll] on the device
         # and round to f32 before the pull, as the JAX package does: the
         # written values are the nearest f32 of the interpolated ones (the
@@ -812,7 +817,6 @@ def exodus_2_gll_arrays(
         out_dev = op.apply(fields).view(
             npoints, n_gll, len(parameters)
         ).transpose(1, 2).to(torch.float32).contiguous()
-        t.sync(out_dev)
     with stage_timer("e2g.stream_write"):
         _stream_pull_write(open_sink(parameters), out_dev)
 
@@ -1029,8 +1033,8 @@ def interpolate_to_points(
     fields = np.stack(
         [_nodal_fields(mesh)[p] for p in params_to_interp]
     )
-    with stage_timer("points.apply") as t:
-        return t.sync(op.apply(fields))
+    with stage_timer("points.apply"):
+        return op.apply(fields)
 
 
 def interpolate_to_points_layered(

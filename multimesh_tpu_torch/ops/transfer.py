@@ -111,13 +111,12 @@ class TransferOperator:
         ``source_points`` [E, (p+1)^d, d] on ``device`` (see
         ``search.locate.locate``, also for ``centroids`` and
         ``candidates``; ``plain`` runs the kernels' plain twins)."""
-        with stage_timer("operator.build") as t:
+        with stage_timer("operator.build"):
             res = _locate(target_points, source_points, order, cfg,
                           fallback=fallback, use_aabb=use_aabb,
                           centroids=centroids, candidates=candidates,
                           prefilter_m=prefilter_m, want_weights=False,
                           device=device, plain=plain)
-            t.sync(res.elements)
         return cls(
             elements=res.elements, order=order, refs=res.refs,
             found=res.found,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..hashing import array_fingerprint
+from ..utils_profile import stage_timer
 from . import knn as _knn
 
 # Sources up to this count take the exact kNN on the exact route.
@@ -217,13 +218,20 @@ def _grid_query(index: GridIndex, queries, k: int, n_probe: int, coords):
     p = min(n_probe, n_bins)
     k_eff = min(k, p * m)
     step = _row_step(n_bins, p, d, m)
+    starts = range(0, queries.shape[0], step)
+    # each stage over all row blocks in turn, so each is one span a call
+    with stage_timer("grid.probe_bins"):
+        probes = [_probe_bins(index, queries[s:s + step] - index.center, p)
+                  for s in starts]
     d2s, idxs = [], []
-    for s in range(0, queries.shape[0], step):
-        q_c = queries[s:s + step] - index.center
-        val, idx = _rank_members(index, _probe_bins(index, q_c, p), q_c,
-                                 k_eff, coords)
-        d2s.append(val)
-        idxs.append(idx)
+    with stage_timer("grid.rank_members"):
+        for s, probe in zip(starts, probes):
+            val, idx = _rank_members(index, probe,
+                                     queries[s:s + step] - index.center,
+                                     k_eff, coords)
+            d2s.append(val)
+            idxs.append(idx)
+    del probes
     if not d2s:
         return (torch.zeros((0, k), dtype=coords.dtype,
                             device=queries.device),

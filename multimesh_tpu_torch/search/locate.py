@@ -75,6 +75,7 @@ from ..config import (DEFAULT_LOCATE, FALLBACK_REF_COORD, LocateConfig,
 from ..core import gll, shape
 from ..hashing import array_fingerprint
 from ..progress import progress as _progress
+from ..utils_profile import count, profiling_enabled, stage_timer
 from . import grid as _grid
 from . import knn as _knn
 from . import newton as _newton
@@ -309,17 +310,23 @@ def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, rescue_by):
 
     # ---- round 1: nearest candidate, all points -----------------------
     elem = cand[:, 0].contiguous()
-    ref, acc, best_max = eval_rows(points, elem)
+    with stage_timer("locate.round1"):
+        ref, acc, best_max = eval_rows(points, elem)
+    count("ladder.round1.rows", n)
+    if profiling_enabled():
+        count("ladder.round1.missed", (~acc).sum())
     best_ref, best_elem = ref.clone(), elem.clone()
 
-    def rescue(cols, idx):
+    def rescue(cols, idx, counter):
         """Retry rows ``idx`` on candidate columns ``cols`` [B, r]:
         first accepting column wins, best score updates best-so-far.
         Rows already accepted are left untouched.  ``idx`` is unique, so
-        the indexed assignments below are plain scatters."""
+        the indexed assignments below are plain scatters.  The B x r rows
+        evaluated are added to ``counter``."""
         B, r = cols.shape
         if B == 0 or r == 0:
             return
+        count(counter, B * r)
         ids_r = cols.T.contiguous()  # [r, B]
         refs_f, acc_f, score_f = eval_rows(points[idx].repeat(r, 1),
                                            ids_r.reshape(-1))
@@ -353,32 +360,35 @@ def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, rescue_by):
         return torch.argsort(key, stable=True)[:B]
 
     # ---- rounds 2-3: the next candidate columns ------------------------
-    if K > 1:
-        idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
-        rescue(cand[idx][:, 1:min(4, K)], idx)
-        if K > 4:
-            idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
-            rescue(cand[idx][:, 4:min(12, K)], idx)
-    elif rescue_by.bucket_cands is not None:
-        idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
-        cand_b = rescue_by.bucket_cands(points[idx])
-        kk = cand_b.shape[1]
-        # round 3 reads the parked top-k; a row that enters round 3
-        # without a round-2 slot reads zeros and evaluates element 0
-        # harmlessly (as in the JAX package), keeping its full-recall
-        # shot in round 4 / the scan retry
-        parked = torch.zeros((n, kk), dtype=torch.int32,
-                             device=points.device)
-        parked[idx] = cand_b
-        rescue(cand_b[:, 1:min(4, kk)], idx)
-        if kk > 4:
-            idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
-            rescue(parked[idx][:, 4:kk], idx)
+    with stage_timer("locate.rounds23"):
+        if K > 1:
+            idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
+            rescue(cand[idx][:, 1:min(4, K)], idx, "ladder.round2.rows")
+            if K > 4:
+                idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
+                rescue(cand[idx][:, 4:min(12, K)], idx,
+                       "ladder.round3.rows")
+        elif rescue_by.bucket_cands is not None:
+            idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
+            cand_b = rescue_by.bucket_cands(points[idx])
+            kk = cand_b.shape[1]
+            # round 3 reads the parked top-k; a row that enters round 3
+            # without a round-2 slot reads zeros and evaluates element 0
+            # harmlessly (as in the JAX package), keeping its full-recall
+            # shot in round 4 / the scan retry
+            parked = torch.zeros((n, kk), dtype=torch.int32,
+                                 device=points.device)
+            parked[idx] = cand_b
+            rescue(cand_b[:, 1:min(4, kk)], idx, "ladder.round2.rows")
+            if kk > 4:
+                idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
+                rescue(parked[idx][:, 4:kk], idx, "ladder.round3.rows")
     # ---- round 4: full-budget re-search for the hardest failures -------
-    idx = failure_order(max(C // rescue_by.div4, min(C, 128)))
-    rescue(rescue_by.round4(points[idx]), idx)
-    full_op = torch.zeros((n,), dtype=torch.bool, device=points.device)
-    full_op[idx] = True
+    with stage_timer("locate.round4"):
+        idx = failure_order(max(C // rescue_by.div4, min(C, 128)))
+        rescue(rescue_by.round4(points[idx]), idx, "ladder.round4.rows")
+        full_op = torch.zeros((n,), dtype=torch.bool, device=points.device)
+        full_op[idx] = True
 
     # under fixed_ref every unaccepted row takes the scan retry, so these
     # placeholders never reach the caller
@@ -560,8 +570,9 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
         for s in range(0, N, chunk):
             pts_c = points[s:s + chunk]
             C = 1 << max(0, pts_c.shape[0] - 1).bit_length()
-            cand_c = (round1(pts_c) if candidates is None
-                      else candidates[s:s + chunk])
+            with stage_timer("locate.round1"):
+                cand_c = (round1(pts_c) if candidates is None
+                          else candidates[s:s + chunk])
             outs.append(_ladder_chunk(pts_c, cand_c, evaluate, cfg,
                                       fallback, C, rescue_by))
             pbar.step(pts_c.shape[0], device_value=outs[-1][0])
@@ -589,8 +600,8 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
     # fallback on an interior point.
     out = (elements, refs, found, accepted)
     n_retry = int(retry.shape[0])
-    with _progress(n_retry, "locate retry",
-                   n_steps=-(-n_retry // chunk)) as rbar:
+    with stage_timer("locate.retry"), _progress(
+            n_retry, "locate retry", n_steps=-(-n_retry // chunk)) as rbar:
         _rescan(retry, points, out, prep, evaluate, cfg, fallback, chunk,
                 k_full, candidates, rbar)
     return (*out, n_retry)
@@ -724,7 +735,8 @@ def locate(points, elem_nodes, order: int,
         polish = False
     points = torch.as_tensor(points, dtype=torch.float64, device=device)
     N = points.shape[0]
-    prep = _mesh_prep(elem_nodes, order, device, want64=polish)
+    with stage_timer("locate.prep"):
+        prep = _mesh_prep(elem_nodes, order, device, want64=polish)
     if centroids is not None:
         # a view of the cached prep with the caller's search centroids;
         # frozen, so the grid index keyed on them is hashed once
@@ -759,12 +771,14 @@ def locate(points, elem_nodes, order: int,
     refs_lo = None
     if polish and N:
         # after the retry, so scan-retried accepted rows are polished too
-        if cfg.f64_polish or f64:
-            refs = _f64_polish(points, elements, refs, accepted, prep, order,
-                               cfg, chunk)
-        else:
-            refs, refs_lo = _df32_polish(points, elements, refs, accepted,
-                                         prep, order, cfg, chunk, plain)
+        with stage_timer("locate.polish"):
+            if cfg.f64_polish or f64:
+                refs = _f64_polish(points, elements, refs, accepted, prep,
+                                   order, cfg, chunk)
+            else:
+                refs, refs_lo = _df32_polish(points, elements, refs,
+                                             accepted, prep, order, cfg,
+                                             chunk, plain)
 
     if want_weights:
         weights = torch.where(found[:, None],

@@ -32,6 +32,7 @@ import torch
 
 from .. import _build
 from ..core import shape
+from ..utils_profile import count
 
 ORDERS = (1, 2, 3, 4, 5, 6, 7)  # the orders the kernel is compiled for
 _MAX_ROWS = 2**31 - 1  # int32 row indices
@@ -118,6 +119,7 @@ def newton_rows(points, ids, ctr, inv_scale, nodes, order: int, dim: int,
     docstring); CUDA tensors launch K1 on the rows grouped by element,
     CPU tensors run the twin."""
     _check_args(points, ids, ctr, inv_scale, nodes, order, dim)
+    count("k1.rows", points.shape[0])
     device = points.device
     if device.type == "cpu":
         return newton_refs_rows_ref(points, ids, ctr, inv_scale, nodes,

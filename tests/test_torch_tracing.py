@@ -1,0 +1,272 @@
+"""The port's span recorder and counters (``utils_profile``) on the CPU:
+nothing recorded or printed with ``MMT_PROFILE`` unset; with it set, the
+spans nest in a ``torch.profiler`` trace as the code nests, the ladder's
+row counters add up and agree with a plain re-count, the event-timed path
+resolves its pending pairs when read, and ``report()`` writes to
+standard error only."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
+
+from multimesh_tpu_torch import engine as tengine  # noqa: E402
+from multimesh_tpu_torch import testing as tmt  # noqa: E402
+from multimesh_tpu_torch import utils_profile as tprofile  # noqa: E402
+from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
+from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
+from multimesh_tpu_torch.search import knn as tknn  # noqa: E402
+from multimesh_tpu_torch.search import locate as tlocate  # noqa: E402
+from multimesh_tpu_torch.search import newton as tnewton  # noqa: E402
+
+CFG = LocateConfig(nelem_to_search=20)
+ROUNDS = [f"ladder.round{r}.rows" for r in (1, 2, 3, 4)]
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    """An order-4 shell of 75 elements (above the 64 below which round 1
+    takes exact top-k columns, so round 1 is the nearest centroid)."""
+    return tmt.shell_mesh(n_lat=5, n_lon=5, n_rad=3, order=4,
+                          lat_extent=(0.5, 1.2), lon_extent=(0.3, 1.4))
+
+
+def _targets(mesh, n, outside, seed=0):
+    """``n`` points spread over the shell's lattice, the last ``outside``
+    of them moved out to 1.2 times its outer radius (more than round 4
+    takes of a chunk of up to 1,024 rows, 128, so the scan retry runs)."""
+    rng = np.random.default_rng(seed)
+    nodes = mesh.points.reshape(-1, 3)
+    a = nodes[rng.integers(0, len(nodes), n)]
+    b = nodes[rng.integers(0, len(nodes), n)]
+    pts = a + rng.uniform(0.0, 0.05, (n, 1)) * (b - a)
+    out = pts[n - outside:]
+    out *= 1.2 * np.linalg.norm(nodes, axis=1).max() / np.linalg.norm(
+        out, axis=1, keepdims=True)
+    return pts
+
+
+def _on(monkeypatch):
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    tprofile.reset_stages()
+
+
+def _ranges(prof):
+    """[(name, start_ns, end_ns)] of the trace's ``mmt.*`` and caller
+    ranges on the host."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(("mmt.", "job")):
+            out.append((e.name(), e.start_ns(),
+                        e.start_ns() + e.duration_ns()))
+    return out
+
+
+def _inside(ranges, inner, *outer):
+    """Every ``inner`` range lies inside some range named in ``outer``
+    (and there is at least one of each)."""
+    inn = [r for r in ranges if r[0] == inner]
+    out = [r for r in ranges if r[0] in outer]
+    return bool(inn and out) and all(
+        any(o[1] <= i[1] and i[2] <= o[2] for o in out) for i in inn)
+
+
+def test_recording_off_makes_no_event_counter_range_or_output(
+        mesh, monkeypatch, capsys):
+    monkeypatch.delenv("MMT_PROFILE", raising=False)
+    tprofile.reset_stages()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the recorder ran with recording off")
+
+    monkeypatch.setattr(tprofile._Span, "__enter__", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    assert tprofile.stage_timer("a") is tprofile.stage_timer("b")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = tlocate.locate(_targets(mesh, 600, 200), mesh.points, 4, CFG,
+                             fallback="snap", device="cpu")
+    assert res.n_retry > 0  # every stage of the ladder ran
+    assert not [r for r in _ranges(prof) if r[0].startswith("mmt.")]
+    assert tprofile.stage_totals() == {}
+    assert tprofile.counter_totals() == {}
+    assert tprofile.stage_peaks() == {}
+    out = capsys.readouterr()
+    assert out.out == "" and out.err == ""
+
+
+def test_spans_nest_in_the_profiler_trace_as_the_code_nests(monkeypatch):
+    _on(monkeypatch)
+    src = tmt.shell_mesh(n_lat=5, n_lon=5, n_rad=3, order=4,
+                         lat_extent=(0.5, 1.2), lon_extent=(0.3, 1.4))
+    tgt = tmt.shell_mesh(n_lat=2, n_lon=2, n_rad=2, order=4,
+                         r_inner=3.6e6, r_outer=6.3e6,
+                         lat_extent=(0.55, 1.15), lon_extent=(0.35, 1.35))
+    data = np.stack([tmt.element_nodal_field(src)] * 2, axis=1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("job"):
+            tengine.transfer_arrays(
+                src.points, data, ["VP", "VS"], tgt.points,
+                np.zeros((tgt.nelem, 2, tgt.n_gll)),
+                np.ones(tgt.nelem, bool),
+                lambda names: np.empty((tgt.nelem, len(names), tgt.n_gll)),
+                device="cpu")
+    ranges = _ranges(prof)
+    assert _inside(ranges, "mmt.locate.round1", "mmt.operator.build")
+    assert _inside(ranges, "mmt.locate.rounds23", "mmt.operator.build")
+    assert _inside(ranges, "mmt.g2g.pull_wait", "mmt.g2g.stream_write")
+    assert _inside(ranges, "mmt.operator.build", "job")
+    assert _inside(ranges, "mmt.g2g.fingerprint", "job")
+    # the recorder's own totals hold the same stages, every one timed
+    totals = tprofile.stage_totals()
+    assert {n[4:] for n, _, _ in ranges if n.startswith("mmt.")} == set(totals)
+    assert all(v > 0 for v in totals.values())
+
+
+def test_ladder_counters_add_up_and_match_a_plain_recount(mesh,
+                                                         monkeypatch):
+    _on(monkeypatch)
+    pts = _targets(mesh, 900, 300)
+    res = tlocate.locate(pts, mesh.points, 4, CFG, fallback="snap",
+                         device="cpu")
+    counters = tprofile.counter_totals()
+    assert res.n_retry > 0
+    assert counters["ladder.round1.rows"] == len(pts)
+    # the retry scans each of its rows against the full candidate list
+    assert counters["k1.rows"] == (sum(counters[r] for r in ROUNDS)
+                                   + res.n_retry * CFG.nelem_to_search)
+    # round 1 by hand: the nearest centroid, one Newton solve, the test
+    prep = tlocate._mesh_prep(mesh.points, 4, torch.device("cpu"))
+    q = torch.as_tensor(pts, dtype=torch.float64)
+    near = tknn.nearest_centroid(prep.centroids, q, plain=True)
+    ref, res1 = tnewton.newton_refs_rows_ref(
+        q, near, prep.ctr, prep.inv_scale, prep.nodes, 4, 3,
+        CFG.newton_iters + CFG.polish_iters, CFG.newton_clamp)
+    accepted = (res1 < 1e-4) & (ref.abs().amax(dim=-1) < CFG.accept_tol)
+    missed = int((~accepted).sum())
+    assert missed >= 300  # the outside points, at least
+    assert counters["ladder.round1.missed"] == missed
+
+
+def test_grid_route_stages_sit_inside_the_ladder_rounds(mesh, monkeypatch):
+    monkeypatch.setattr(tgrid, "APPROX_GRID_MIN_SOURCES", 16)
+    _on(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tlocate.locate(_targets(mesh, 300, 0), mesh.points, 4, CFG,
+                       fallback="snap", device="cpu")
+    ranges = _ranges(prof)
+    rounds = ("mmt.locate.round1", "mmt.locate.rounds23",
+              "mmt.locate.round4")
+    assert _inside(ranges, "mmt.grid.probe_bins", *rounds)
+    assert _inside(ranges, "mmt.grid.rank_members", *rounds)
+    calls = dict(tprofile._REC.calls)
+    assert calls["grid.probe_bins"] == calls["grid.rank_members"] >= 3
+
+
+class _FakeEvent:
+    """Stands in for ``torch.cuda.Event``: records the fake clock and is
+    complete once ``done`` is set."""
+    clock = 0.0
+    done = False
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = _FakeEvent.clock
+
+    def query(self):
+        return _FakeEvent.done
+
+    def synchronize(self):
+        _FakeEvent.done = True
+
+    def elapsed_time(self, other):
+        return 1e3 * (other.t - self.t)
+
+
+def test_event_timed_stages_resolve_when_read_and_credit_peaks(monkeypatch):
+    peak = [0]
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(
+        torch.cuda, "memory_stats_as_nested_dict",
+        lambda: {"allocated_bytes": {"all": {"peak": peak[0]}}})
+    monkeypatch.setattr(_FakeEvent, "clock", 0.0)
+    monkeypatch.setattr(_FakeEvent, "done", False)
+    _on(monkeypatch)
+    with tprofile.stage_timer("outer"):
+        _FakeEvent.clock, peak[0] = 1.0, 100
+        with tprofile.stage_timer("inner"):
+            _FakeEvent.clock, peak[0] = 3.0, 300
+        _FakeEvent.clock = 4.0
+    with tprofile.stage_timer("inner"):
+        _FakeEvent.clock = 4.5
+    # the card has not reached the events: nothing resolved at the ends
+    assert len(tprofile._REC.pending) == 3 and tprofile._REC.seconds == {}
+    _FakeEvent.done = True
+    assert tprofile.stage_totals() == pytest.approx(
+        {"outer": 4.0, "inner": 2.5})
+    assert tprofile._REC.pending == [] and len(tprofile._REC.free) == 6
+    # 0 -> 300 while outer, the outermost stage, ran; the second inner
+    # ran outermost and left the peak where it was
+    assert tprofile.stage_peaks() == {"outer": 300}
+    # a completed pair is resolved at the next stage's end, and its
+    # events are recorded again rather than created
+    free = list(tprofile._REC.free)
+    with tprofile.stage_timer("again"):
+        _FakeEvent.clock = 6.0
+    assert tprofile._REC.pending == [] and len(tprofile._REC.free) == 6
+    assert set(map(id, tprofile._REC.free)) == set(map(id, free))
+    assert tprofile.stage_totals()["again"] == pytest.approx(1.5)
+    # reading the totals waits for the card's last event
+    _FakeEvent.done = False
+    with tprofile.stage_timer("again"):
+        _FakeEvent.clock = 7.0
+    assert len(tprofile._REC.pending) == 1
+    assert tprofile.stage_totals()["again"] == pytest.approx(2.5)
+    tprofile.count("rows", 5)
+    tprofile.count("rows", torch.tensor(7))
+    assert tprofile.counter_totals() == {"rows": 12}
+    tprofile.reset_stages()
+    assert (tprofile.stage_totals(), tprofile.stage_peaks(),
+            tprofile.counter_totals()) == ({}, {}, {})
+
+
+def test_grid_stages_are_one_span_a_query_over_many_row_blocks(
+        monkeypatch):
+    rng = np.random.default_rng(1)
+    src = torch.as_tensor(rng.normal(size=(600, 3)))
+    qry = torch.as_tensor(rng.normal(size=(500, 3)))
+    index = tgrid.get_grid_index(src.numpy(), 16, torch.device("cpu"))
+    want = tgrid.grid_knn(index, qry, 5, n_probe=4)
+    # row blocks of a few rows: the two stages still open once a query
+    n_bins, _, m = index.bin_coords64.shape
+    monkeypatch.setattr(tgrid, "_BLOCK_ENTRIES", 4 * n_bins)
+    assert tgrid._row_step(n_bins, 4, 3, m) < 100
+    _on(monkeypatch)
+    got = tgrid.grid_knn(index, qry, 5, n_probe=4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert tprofile._REC.calls == {"grid.probe_bins": 1,
+                                   "grid.rank_members": 1}
+
+
+def test_report_writes_the_table_to_stderr_only(monkeypatch, capsys):
+    _on(monkeypatch)
+    with tprofile.stage_timer("g2g.dedup"):
+        with tprofile.stage_timer("locate.round1"):
+            pass
+    tprofile.count("k1.rows", 262_144)
+    tprofile.count("ladder.round1.missed", torch.tensor(3))
+    tprofile.report()
+    out = capsys.readouterr()
+    assert out.out == ""
+    lines = out.err.splitlines()
+    assert lines[0].split()[:2] == ["mmt", "stage"]
+    rows = {ln.split()[0]: ln.split()[1:] for ln in lines[1:3]}
+    assert set(rows) == {"g2g.dedup", "locate.round1"}
+    assert rows["g2g.dedup"][1] == "1"  # one call
+    assert all(ln.startswith("mmt counter ") for ln in lines[3:])
+    assert {ln.split()[-2]: ln.split()[-1] for ln in lines[3:]} == {
+        "k1.rows": "262144", "ladder.round1.missed": "3"}
