@@ -261,8 +261,8 @@ def transfer_arrays(
     # keys the dedup cache, and their combination guards the on-disk
     # operator cache.  Keying the operator on the raw target coordinates
     # (not the deduplicated points) is what lets a cache hit skip the
-    # host dedup lexsort entirely: the operator is saved WITH its
-    # reconstruction indices (recon.npy).
+    # dedup entirely: the operator is saved WITH its reconstruction
+    # indices (recon.npy).
     with stage_timer("g2g.fingerprint"):
         fp_tgt = content_fingerprint(new_points)
         fp = combine_fingerprints(content_fingerprint(src_points), fp_tgt)

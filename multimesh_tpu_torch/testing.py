@@ -334,3 +334,30 @@ def shell_targets(n_points: int, seed: int = 0) -> np.ndarray:
     return np.stack(
         [r * np.sin(th) * np.cos(ph), r * np.sin(th) * np.sin(ph),
          r * np.cos(th)], -1)
+
+
+# the edges of the dedup's grouping (``ops/dedup.py``), one input each
+DEDUP_EDGE_CASES = ("signed_zero", "nan", "one_row", "all_equal",
+                    "none_shared", "d2")
+
+
+def dedup_edge_points(case: str) -> np.ndarray:
+    """An input [N, d] f64 at one edge of the dedup's grouping
+    (``DEDUP_EDGE_CASES``): the card's kernel, its plain twin and the
+    host path are held to each other on the same ones."""
+    if case == "signed_zero":  # -0.0 == +0.0: one group, the first bits
+        return np.array([[-0.0, 1.0, 0.0], [0.0, 1.0, -0.0], [2.0, 0.0, 0.0],
+                         [0.0, 1.0, 0.0], [-0.0, 1.0, -0.0]])
+    if case == "nan":  # a row with a NaN equals no row, itself included
+        return np.array([[np.nan, 1.0, 2.0], [1.0, 1.0, 2.0],
+                         [np.nan, 1.0, 2.0], [1.0, 1.0, 2.0],
+                         [1.0, np.nan, 2.0], [1.0, 1.0, np.nan]])
+    if case == "one_row":
+        return np.array([[3.0, -1.5, 2.25]])
+    if case == "all_equal":
+        return np.full((300, 3), 1.25)
+    if case == "none_shared":
+        return np.random.default_rng(3).normal(size=(400, 3))
+    if case == "d2":
+        return np.random.default_rng(4).integers(0, 5, (300, 2)) / 2.0
+    raise ValueError(case)

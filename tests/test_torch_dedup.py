@@ -1,8 +1,9 @@
 """``multimesh_tpu_torch.ops.dedup`` against the JAX package's
 ``ops/dedup.py``: the host dedup is the same numpy, so unique points and
-reconstruction indices agree bit for bit; the caches return the same
-objects on a hit, hold two entries, and the device copy is keyed by its
-device.
+reconstruction indices agree bit for bit, and so does the plain PyTorch
+twin of the card's kernel (``dedup_first_ref``) with the first-appearance
+order; the caches return the same objects on a hit, hold two entries, and
+the device copy is keyed by its device.
 """
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ torch.set_num_threads(2)
 
 from multimesh_tpu import testing as jmt  # noqa: E402
 from multimesh_tpu.ops import dedup as jdedup  # noqa: E402
+from multimesh_tpu_torch import testing, utils_profile  # noqa: E402
 from multimesh_tpu_torch.hashing import content_fingerprint  # noqa: E402
 from multimesh_tpu_torch.ops import dedup as tdedup  # noqa: E402
 
@@ -34,12 +36,32 @@ def _points(kind):
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("order_by", ["sorted", "first"])
+def _twin(pts):
+    """``dedup_first_ref`` on the flat points, as numpy."""
+    flat = torch.as_tensor(pts.reshape(-1, pts.shape[-1]))
+    uniq, recon = tdedup.dedup_first_ref(flat)
+    return uniq.numpy(), recon.numpy()
+
+
+def _assert_bits_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a.view(np.int64), b.view(np.int64))
+
+
+# "first_twin": the card kernel's plain twin, against the first order
+@pytest.mark.parametrize("order_by", ["sorted", "first", "first_twin"])
 @pytest.mark.parametrize("kind",
                          ["shell_3d", "box_2d", "flat_3d", "flat_2d"])
 def test_unique_points_equals_jax(kind, order_by):
     pts = _points(kind)
-    uniq, recon = tdedup.unique_points(pts, order_by=order_by)
+    if order_by == "first_twin":
+        uniq, recon = _twin(pts)
+        host_uniq, host_recon = tdedup.unique_points(pts, order_by="first")
+        _assert_bits_equal(uniq, host_uniq)
+        np.testing.assert_array_equal(recon, host_recon)
+        order_by = "first"
+    else:
+        uniq, recon = tdedup.unique_points(pts, order_by=order_by)
     j_uniq, j_recon = jdedup.unique_points(pts, order_by=order_by)
     np.testing.assert_array_equal(uniq, j_uniq)
     np.testing.assert_array_equal(recon, j_recon)
@@ -55,6 +77,63 @@ def test_unique_points_equals_jax(kind, order_by):
         assert run_max[0] == 0
         assert (np.diff(run_max) <= 1).all()
         assert (recon <= run_max).all()
+
+
+@pytest.mark.parametrize("case", testing.DEDUP_EDGE_CASES)
+def test_twin_edge_cases_equal_host_bitwise(case):
+    """``dedup_first_ref`` and the host path agree bit for bit at the
+    grouping's edges, and both follow ``==`` (the JAX package's too)."""
+    pts = testing.dedup_edge_points(case)
+    uniq, recon = _twin(pts)
+    host_uniq, host_recon = tdedup.unique_points(pts, order_by="first")
+    j_uniq, j_recon = jdedup.unique_points(pts, order_by="first")
+    for u, r in ((host_uniq, host_recon), (j_uniq, j_recon)):
+        _assert_bits_equal(uniq, u)
+        np.testing.assert_array_equal(recon, r)
+    assert recon.dtype == np.int64
+    rows = ~np.isnan(pts).any(axis=1)
+    assert (uniq[recon][rows] == pts[rows]).all()
+    n_groups = {"signed_zero": 2, "nan": 5, "one_row": 1, "all_equal": 1,
+                "none_shared": 400}.get(case)
+    if n_groups is not None:
+        assert len(uniq) == n_groups
+    if case == "signed_zero":
+        # the group of (0, 1, 0) carries its first row's bits, -0.0 first
+        assert np.signbit(uniq[0]).tolist() == [True, False, False]
+        assert recon.tolist() == [0, 0, 1, 0, 0]
+    if case == "nan":
+        assert recon.tolist() == [0, 1, 2, 1, 3, 4]
+
+
+def test_device_dedup_on_cpu_takes_the_host_path(monkeypatch):
+    """``unique_points_device(device="cpu")`` runs the host lexsort (its
+    counters move, the card's does not) and launches nothing."""
+    monkeypatch.setattr(tdedup, "_UNIQ_CACHE", {})
+    monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    pts = _points("box_2d")
+    utils_profile.reset_stages()
+    launches = tdedup.dedup_first.launches
+    try:
+        dev, recon = tdedup.unique_points_device(
+            pts, content_fingerprint(pts), device="cpu")
+        counters = utils_profile.counter_totals()
+    finally:
+        utils_profile.reset_stages()
+    n = pts.shape[0] * pts.shape[1]
+    assert counters == {"dedup.host_rows": n, "dedup.unique_rows": len(dev)}
+    assert tdedup.dedup_first.launches == launches
+    uniq, want = tdedup.unique_points(pts, order_by="first")
+    np.testing.assert_array_equal(dev.numpy(), uniq)
+    np.testing.assert_array_equal(recon, want)
+
+
+def test_dedup_first_refuses_what_the_kernel_does_not_take():
+    for bad in (torch.zeros((4, 3), dtype=torch.float32),
+                torch.zeros((4, 4), dtype=torch.float64),
+                torch.zeros((4,), dtype=torch.float64)):
+        with pytest.raises(ValueError, match="dedup_first"):
+            tdedup.dedup_first(bad)
 
 
 def test_unknown_order_by_raises():

@@ -17,6 +17,7 @@ torch.set_num_threads(2)
 from multimesh_tpu_torch import TransferOperator, _build, testing  # noqa: E402
 from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
 from multimesh_tpu_torch.core import shape  # noqa: E402
+from multimesh_tpu_torch.ops import dedup as tdedup  # noqa: E402
 from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
 from multimesh_tpu_torch.search import nearest, newton, polish  # noqa: E402
@@ -930,3 +931,107 @@ def test_sharded_schemes_at_world_size_1_on_card(dev):
                                           want.double().cpu().numpy())
     finally:
         dist.destroy_process_group()
+
+
+# -- the dedup kernel (csrc/dedup_first.cu) ---------------------------------
+def mesh_new_1m_target(angle=0.03):
+    """The target of the benchmark's ``mesh_new_1m`` jobs, rotated about
+    the polar axis: 8,000 order-4 elements, 1,000,000 slots, 531,441
+    unique points, [E, 125, 3]."""
+    tgt = testing.shell_mesh(n_lat=20, n_lon=20, n_rad=20, order=4,
+                             r_inner=3.7e6, r_outer=6.2e6,
+                             lat_extent=(0.58, 1.12),
+                             lon_extent=(0.38, 1.32))
+    c, s_ = np.cos(angle), np.sin(angle)
+    x, y, z = np.moveaxis(tgt.points, -1, 0)
+    return np.stack([c * x - s_ * y, s_ * x + c * y, z], axis=-1)
+
+
+def _dedup_input(case):
+    if case == "shuffled":
+        flat = testing.shell_mesh(n_lat=6, n_lon=6, n_rad=6,
+                                  order=4).points.reshape(-1, 3)
+        return flat[np.random.default_rng(5).permutation(len(flat))]
+    if case == "mesh_new_1m":
+        return mesh_new_1m_target().reshape(-1, 3)
+    return testing.dedup_edge_points(case)
+
+
+@pytest.mark.parametrize("case", list(testing.DEDUP_EDGE_CASES)
+                         + ["shuffled", "mesh_new_1m"])
+def test_dedup_kernel_matches_host_path_bitwise(dev, case):
+    """The kernel's unique rows and recon against the host path's
+    ``unique_points(order_by="first")``, bit for bit, on three runs of
+    the same input (identical outputs whatever order the threads ran
+    in); the launch count rises by one a call."""
+    pts = _dedup_input(case)
+    want_u, want_r = tdedup.unique_points(pts, order_by="first")
+    if case == "mesh_new_1m":
+        assert pts.shape == (1_000_000, 3) and len(want_u) == 531_441
+    for _ in range(3):
+        before = tdedup.dedup_first.launches
+        uniq, recon = tdedup.dedup_first(torch.as_tensor(pts, device=dev))
+        assert tdedup.dedup_first.launches == before + 1
+        assert uniq.device.type == "cuda" and recon.dtype == torch.int64
+        got_u, got_r = uniq.cpu().numpy(), recon.cpu().numpy()
+        assert got_u.shape == want_u.shape
+        np.testing.assert_array_equal(got_u.view(np.int64),
+                                      want_u.view(np.int64))
+        np.testing.assert_array_equal(got_r, want_r)
+
+
+def test_device_dedup_takes_f32_coordinates(dev, monkeypatch):
+    """``unique_points_device`` on the card groups f32 coordinates as the
+    host path groups them: the rows are uploaded as f64 (exact), so the
+    unique rows are the host path's widened and recon is the same."""
+    monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
+    pts = testing.shell_mesh(n_lat=4, n_lon=4, n_rad=4,
+                             order=4).points.astype(np.float32)
+    want_u, want_r = tdedup.unique_points(pts, order_by="first")
+    before = tdedup.dedup_first.launches
+    uniq, recon = tdedup.unique_points_device(pts, 1, device=dev)
+    assert tdedup.dedup_first.launches == before + 1
+    assert uniq.dtype == torch.float64
+    np.testing.assert_array_equal(uniq.cpu().numpy(),
+                                  want_u.astype(np.float64))
+    np.testing.assert_array_equal(recon, want_r)
+
+
+def test_transfer_arrays_card_dedup_matches_host_dedup(dev, tmp_path,
+                                                       monkeypatch):
+    """``engine.transfer_arrays`` on the card with the card's dedup and
+    with the host path's (the unique points uploaded): the same sink
+    values, bit for bit, and the same ``recon.npy`` under
+    ``stored_array``, byte for byte."""
+    from multimesh_tpu_torch import engine
+
+    src, tgt, fluid = _file_pair()
+    s_nodal, _ = testing.salvus_fixture_fields(src)
+    t_nodal, _ = testing.salvus_fixture_fields(tgt, fluid=fluid,
+                                               field_kind="linear")
+    src_data = np.stack(list(s_nodal.values()), axis=1)
+    old = np.stack(list(t_nodal.values()), axis=1)
+
+    def run(stored):
+        monkeypatch.setattr(tdedup, "_UNIQ_CACHE", {})
+        monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
+        sink = np.full(old.shape, np.nan)
+        engine.transfer_arrays(
+            src.points, src_data, list(s_nodal), tgt.points, old,
+            ~fluid.astype(bool), lambda names: sink, stored_array=stored,
+            device=dev)
+        return sink
+
+    def host_dedup(points, fingerprint, order_by="first", device="cuda"):
+        uniq, recon = tdedup.unique_points(points, order_by=order_by)
+        return torch.as_tensor(uniq, device=device), recon
+
+    before = tdedup.dedup_first.launches
+    card = run(tmp_path / "card")
+    assert tdedup.dedup_first.launches == before + 1
+    monkeypatch.setattr(engine, "unique_points_device", host_dedup)
+    host = run(tmp_path / "host")
+    assert tdedup.dedup_first.launches == before + 1
+    np.testing.assert_array_equal(card.view(np.int64), host.view(np.int64))
+    assert ((tmp_path / "card" / "recon.npy").read_bytes()
+            == (tmp_path / "host" / "recon.npy").read_bytes())
