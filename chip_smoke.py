@@ -2241,7 +2241,8 @@ def phase_exodus_gll(dev, smi, tgt, tmpdir):
         stages = utils_profile.stage_totals()
     finally:
         del os.environ["MMT_PROFILE"]
-    check({"operator.build", "e2g.apply", "e2g.stream_write"} <= set(stages),
+    check({"e2g.locate", "operator.build", "e2g.apply", "e2g.stream_write"}
+          <= set(stages),
           f"stages {sorted(stages)}")
     median, spread = _median_spread(walls)
     emit({"phase": "exodus_gll", "h5py": False, "nvidia_smi": smi,

@@ -805,8 +805,9 @@ def exodus_2_gll_arrays(
     (``sink[s:e] = block``)."""
     device = _device(device)
     npoints, n_gll, dim = coords.shape
-    op = _exodus_operator(corner_nodes, coords.reshape(-1, dim),
-                          nelem_to_search, device)
+    with stage_timer("e2g.locate"):
+        op = _exodus_operator(corner_nodes, coords.reshape(-1, dim),
+                              nelem_to_search, device)
     # all parameters in ONE device pass
     with stage_timer("e2g.apply"):
         # Relayout to the target layout [npoints, F, n_gll] on the device

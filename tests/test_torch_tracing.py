@@ -270,3 +270,47 @@ def test_report_writes_the_table_to_stderr_only(monkeypatch, capsys):
     assert all(ln.startswith("mmt counter ") for ln in lines[3:])
     assert {ln.split()[-2]: ln.split()[-1] for ln in lines[3:]} == {
         "k1.rows": "262144", "ladder.round1.missed": "3"}
+
+
+def test_the_exodus_path_times_its_location_step_once_a_call(monkeypatch):
+    """``e2g.locate`` wraps the build and the missing-row check: one span a
+    call of ``exodus_2_gll_arrays``, ``operator.build`` and the ladder's
+    rounds inside it, the apply and the write after it; recording off,
+    nothing is recorded."""
+    src = tmt.shell_mesh(n_lat=4, n_lon=4, n_rad=3, order=1)
+    tgt = tmt.shell_mesh(n_lat=2, n_lon=2, n_rad=2, order=2,
+                         r_inner=3.7e6, r_outer=6.2e6,
+                         lat_extent=(0.58, 1.12), lon_extent=(0.38, 1.32))
+    fields = np.stack([tmt.smooth_field(src.points)] * 2)
+    coords = tgt.points.astype(np.float32)
+
+    def call():
+        sink = np.zeros((tgt.nelem, 2, tgt.n_gll), np.float32)
+        tengine.exodus_2_gll_arrays(src.points, fields, ["VP", "VS"], coords,
+                                    lambda names: sink, device="cpu")
+        return sink
+
+    monkeypatch.delenv("MMT_PROFILE", raising=False)
+    tprofile.reset_stages()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        off = call()
+    assert not [r for r in _ranges(prof) if r[0].startswith("mmt.")]
+    assert tprofile.stage_totals() == {} and tprofile._REC.calls == {}
+
+    _on(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("job"):
+            on = call()
+        call()
+    np.testing.assert_array_equal(on, off)
+    ranges = _ranges(prof)
+    assert tprofile._REC.calls["e2g.locate"] == 2
+    assert tprofile._REC.calls["operator.build"] == 2
+    assert _inside(ranges, "mmt.operator.build", "mmt.e2g.locate")
+    assert _inside(ranges, "mmt.locate.round1", "mmt.e2g.locate")
+    assert not _inside(ranges, "mmt.e2g.apply", "mmt.e2g.locate")
+    first = [r for r in ranges if r[0] == "mmt.e2g.locate"][0]
+    apply = [r for r in ranges if r[0] == "mmt.e2g.apply"][0]
+    assert first[2] <= apply[1]
+    assert tprofile.stage_totals()["e2g.locate"] >= \
+        tprofile.stage_totals()["operator.build"] > 0
