@@ -10,15 +10,18 @@ of at most ``grid.APPROX_GRID_MIN_SOURCES`` (16,384) elements:
    one Newton solve on it (K1, ``search.newton``);
 2. rounds 2-3: the failures, hardest first, try the next columns of
    their top-8 nearest centroids;
-3. round 4: an exact kNN with ``nelem_to_search`` candidates for the last
-   C/128 failures;
+3. round 4: an exact kNN with ``nelem_to_search`` candidates for the
+   hardest failures;
 
 and for larger sources, where a [rows, E] sweep would grow with the mesh,
 the same rounds over the balanced-bin index of ``search.grid`` (the grid
 route): round 1 takes the nearest member of the 4 nearest 128-member
-bins, rounds 2-3 the top 12 of 2 probed bins for C/32 failures each,
-round 4 the full ``nelem_to_search`` list of 16 probed bins for C/32.
-Then, on both routes:
+bins, rounds 2-3 the top 12 of 2 probed bins, round 4 the full
+``nelem_to_search`` list of 16 probed bins.  The rescue rounds are sized
+by round 1's failures, capped at fixed buckets of the chunk (C/4, C/32,
+C/128 rows of a chunk of C on the nearest-centroid route, C/32 each on
+the grid route): a chunk that round 1 accepts whole skips them.  Then, on both
+routes:
 
 4. the sentinel / snap / best / fixed_ref fallbacks;
 5. a scan retry (K1 once per candidate column) of the unaccepted rows
@@ -75,7 +78,7 @@ from ..config import (DEFAULT_LOCATE, FALLBACK_REF_COORD, LocateConfig,
 from ..core import gll, shape
 from ..hashing import array_fingerprint
 from ..progress import progress as _progress
-from ..utils_profile import count, profiling_enabled, stage_timer
+from ..utils_profile import count, stage_timer
 from . import grid as _grid
 from . import knn as _knn
 from . import newton as _newton
@@ -279,42 +282,96 @@ class _Rescue:
     """What the ladder's rescue rounds search with, per route.
 
     ``bucket_cands(points) -> [B, kk]`` int32 gives rounds 2-3 their
-    candidates when round 1 had one (None below ``_NEAR1_MIN_SOURCES``,
-    where round 1's own columns serve); ``round4(points) -> [B, k]`` the
-    full-budget list.  ``div2``, ``div3``, ``div4``: round r retries the
-    C // div_r hardest failures of a chunk of C rows."""
+    candidates when round 1 had one (None below ``_NEAR1_MIN_SOURCES``
+    and for the caller's ``candidates``, where round 1's own columns
+    serve); ``round4(points) -> [B, k]`` the full-budget list.  ``div``
+    = (div2, div3, div4) caps the rounds of a chunk of C rows (``caps``).
+    """
 
     bucket_cands: Callable | None
     round4: Callable
-    div2: int
-    div3: int
-    div4: int
+    div: tuple[int, int, int]
+
+    def caps(self, C: int) -> tuple[int, int, int]:
+        """The most rows rounds 2, 3 and 4 retry in a chunk whose
+        power-of-two row bucket is C: C // div_r, and at least
+        min(C, 256) in rounds 2-3, min(C, 128) in round 4."""
+        d2, d3, d4 = self.div
+        return (max(C // d2, min(C, 256)), max(C // d3, min(C, 256)),
+                max(C // d4, min(C, 128)))
 
 
-def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, rescue_by):
-    """The escalation ladder over one chunk.
+def _rescue_rows(B: int, n_unaccepted: int) -> int:
+    """Rows a rescue round capped at ``B`` retries: the chunk's rows that
+    round 1 left unaccepted, at most ``B``.  Their count only falls after
+    round 1, and the rows past them in the failure order are accepted
+    ones, which no round changes."""
+    return min(B, n_unaccepted)
+
+
+def _eval_rows(evaluate, pts, ids):
+    """(refs, accepted, score) of (point, element) rows: the score is a
+    converged solve's max |ref|, inf for a diverged one."""
+    ref, conv, maxabs, _, accepted = evaluate(pts, ids)
+    return ref, accepted, torch.where(conv, maxabs, float("inf"))
+
+
+def _count_on_host(x):
+    """Start copying the 0-d count ``x`` to the host: returns ``read() ->
+    int``, which waits for that copy alone.  On the card it lands in
+    pinned memory behind an event, so the work queued after it keeps the
+    card busy while the host waits."""
+    host, landed = x, None
+    if x.is_cuda:
+        host = torch.empty((), dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record()
+
+    def read():
+        if landed is not None:
+            landed.synchronize()
+        return int(host)
+
+    return read
+
+
+def _ladder_round1(points, cand, evaluate):
+    """Round 1 of the ladder over one chunk: every row's first candidate
+    column (the nearest centroid or member) solved.  Returns ((elem, ref,
+    acc, best_max), missed), ``missed() -> int`` the rows it left
+    unaccepted (``_count_on_host``)."""
+    elem = cand[:, 0].contiguous()
+    with stage_timer("locate.round1"):
+        ref, acc, best_max = _eval_rows(evaluate, points, elem)
+    count("ladder.round1.rows", points.shape[0])
+    return (elem, ref, acc, best_max), _count_on_host((~acc).sum())
+
+
+def _ladder_chunk(points, cand, first, n_missed, evaluate, cfg, fallback,
+                  C, rescue_by):
+    """The escalation ladder over one chunk after round 1 (``first``, and
+    ``n_missed`` the rows it left unaccepted, from ``_ladder_round1``).
 
     points [n, d] f64, cand [n, K] int32 (K = 1: the nearest centroid or
     member, whose failures take ``rescue_by.bucket_cands`` in rounds 2-3).
-    ``C`` is the chunk's power-of-two row bucket: the rescue bucket sizes
-    derive from it exactly as in the JAX package, so both evaluate the
-    same rows in every round.  Returns (elements, refs, found, accepted,
-    needs_retry)."""
+    The rescue rounds are sized by the failures, capped at
+    ``rescue_by.caps(C)`` (``C`` the chunk's power-of-two row bucket):
+    round r retries the ``_rescue_rows`` hardest failures, and a chunk
+    that round 1 accepts whole skips rounds 2-4.  Returns (elements,
+    refs, found, accepted, needs_retry)."""
     n, d = points.shape
-    K = cand.shape[1]
     inf = float("inf")
-
-    def eval_rows(pts, ids):
-        ref, conv, maxabs, _, accepted = evaluate(pts, ids)
-        return ref, accepted, torch.where(conv, maxabs, inf)
-
-    # ---- round 1: nearest candidate, all points -----------------------
-    elem = cand[:, 0].contiguous()
-    with stage_timer("locate.round1"):
-        ref, acc, best_max = eval_rows(points, elem)
-    count("ladder.round1.rows", n)
-    if profiling_enabled():
-        count("ladder.round1.missed", (~acc).sum())
+    elem, ref, acc, best_max = first
+    count("ladder.round1.missed", n_missed)
+    b2, b3, b4 = (_rescue_rows(B, n_missed) for B in rescue_by.caps(C))
+    if not (b2 or b3 or b4):
+        # every row accepted: the best-so-far state is round 1's own
+        count("ladder.rescue.skipped", 1)
+        elements, refs, found = _assemble(
+            fallback, cfg, acc, elem, ref, best_max, ref, elem,
+            fb=(elem, _fixed_ref(n, d, points.device)))
+        return elements, refs, found, acc, ~acc
     best_ref, best_elem = ref.clone(), elem.clone()
 
     def rescue(cols, idx, counter):
@@ -328,8 +385,8 @@ def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, rescue_by):
             return
         count(counter, B * r)
         ids_r = cols.T.contiguous()  # [r, B]
-        refs_f, acc_f, score_f = eval_rows(points[idx].repeat(r, 1),
-                                           ids_r.reshape(-1))
+        refs_f, acc_f, score_f = _eval_rows(
+            evaluate, points[idx].repeat(r, 1), ids_r.reshape(-1))
         refs_r = refs_f.view(r, B, d)
         acc_r = acc_f.view(r, B)
         score_r = score_f.view(r, B)
@@ -353,39 +410,32 @@ def _ladder_chunk(points, cand, evaluate, cfg, fallback, C, rescue_by):
     def failure_order(B):
         """The B hardest-to-dismiss failures: unaccepted rows by their
         best max |ref| so far (near-boundary interior stragglers first),
-        diverged rows next, accepted rows last.  Stable, as jnp.argsort:
-        ties keep row order."""
+        diverged rows next, accepted rows last.  Stable: ties keep row
+        order."""
         key = torch.where(
             acc, inf, torch.where(torch.isfinite(best_max), best_max, 1.5))
         return torch.argsort(key, stable=True)[:B]
 
     # ---- rounds 2-3: the next candidate columns ------------------------
     with stage_timer("locate.rounds23"):
-        if K > 1:
-            idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
-            rescue(cand[idx][:, 1:min(4, K)], idx, "ladder.round2.rows")
-            if K > 4:
-                idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
-                rescue(cand[idx][:, 4:min(12, K)], idx,
-                       "ladder.round3.rows")
-        elif rescue_by.bucket_cands is not None:
-            idx = failure_order(max(C // rescue_by.div2, min(C, 256)))
-            cand_b = rescue_by.bucket_cands(points[idx])
-            kk = cand_b.shape[1]
+        idx = failure_order(b2)
+        table = cand  # round 1's own columns, else the parked top-k
+        if rescue_by.bucket_cands is not None:
             # round 3 reads the parked top-k; a row that enters round 3
             # without a round-2 slot reads zeros and evaluates element 0
-            # harmlessly (as in the JAX package), keeping its full-recall
-            # shot in round 4 / the scan retry
-            parked = torch.zeros((n, kk), dtype=torch.int32,
-                                 device=points.device)
-            parked[idx] = cand_b
-            rescue(cand_b[:, 1:min(4, kk)], idx, "ladder.round2.rows")
-            if kk > 4:
-                idx = failure_order(max(C // rescue_by.div3, min(C, 256)))
-                rescue(parked[idx][:, 4:kk], idx, "ladder.round3.rows")
+            # harmlessly, keeping its full-recall shot in round 4 / the
+            # scan retry
+            cand_b = rescue_by.bucket_cands(points[idx])
+            table = torch.zeros((n, cand_b.shape[1]), dtype=torch.int32,
+                                device=points.device)
+            table[idx] = cand_b
+        rescue(table[idx][:, 1:4], idx, "ladder.round2.rows")
+        if table.shape[1] > 4:
+            idx = failure_order(b3)
+            rescue(table[idx][:, 4:12], idx, "ladder.round3.rows")
     # ---- round 4: full-budget re-search for the hardest failures -------
     with stage_timer("locate.round4"):
-        idx = failure_order(max(C // rescue_by.div4, min(C, 128)))
+        idx = failure_order(b4)
         rescue(rescue_by.round4(points[idx]), idx, "ladder.round4.rows")
         full_op = torch.zeros((n,), dtype=torch.bool, device=points.device)
         full_op[idx] = True
@@ -537,7 +587,7 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
 
         rescue_by = _Rescue(
             lambda q: _grid.probe_topk(index, q, kk, max(2, 256 // m)),
-            round4, div2=32, div3=32, div4=32)
+            round4, div=(32, 32, 32))
     else:
         def round4(q):
             return _knn.knn(prep.centroids, q, k_full)[1]
@@ -553,29 +603,40 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
             rescue_by = _Rescue(
                 lambda q: _knn.centred_topk(sources_c32, q, center,
                                             min(8, E)),
-                round4, div2=4, div3=32, div4=128)
+                round4, div=(4, 32, 128))
         else:
             def round1(q):
                 return _knn.knn(prep.centroids, q, min(k_full, 8))[1]
 
-            rescue_by = _Rescue(None, round4, div2=4, div3=8, div4=128)
+            rescue_by = _Rescue(None, round4, div=(4, 8, 128))
     if candidates is not None:
-        # the caller's columns take rounds 1-3 in the bucket sizes of the
-        # JAX package's K > 1 branch (C/4, C/8); round 4 is the route's
-        rescue_by = _Rescue(None, round4, div2=4, div3=8,
-                            div4=rescue_by.div4)
+        # the caller's columns take rounds 1-3, capped as round 1's exact
+        # columns are (C/4, C/8); round 4 is the route's
+        rescue_by = _Rescue(None, round4, div=(4, 8, rescue_by.div[2]))
 
-    outs = []
+    def rescue_chunk(pts_c, cand_c, first, missed):
+        C = 1 << max(0, pts_c.shape[0] - 1).bit_length()
+        outs.append(_ladder_chunk(pts_c, cand_c, first, missed(), evaluate,
+                                  cfg, fallback, C, rescue_by))
+        pbar.step(pts_c.shape[0], device_value=outs[-1][0])
+
+    outs, held = [], None
     with _progress(N, "locate", n_steps=-(-N // chunk)) as pbar:
         for s in range(0, N, chunk):
             pts_c = points[s:s + chunk]
-            C = 1 << max(0, pts_c.shape[0] - 1).bit_length()
             with stage_timer("locate.round1"):
                 cand_c = (round1(pts_c) if candidates is None
                           else candidates[s:s + chunk])
-            outs.append(_ladder_chunk(pts_c, cand_c, evaluate, cfg,
-                                      fallback, C, rescue_by))
-            pbar.step(pts_c.shape[0], device_value=outs[-1][0])
+            this = (pts_c, cand_c,
+                    *_ladder_round1(pts_c, cand_c, evaluate))
+            # the chunk before takes its rescue rounds only now: the card
+            # runs this chunk's round 1 while the host waits for that
+            # chunk's count of failures and queues its rounds
+            if held is not None:
+                rescue_chunk(*held)
+            held = this
+        if held is not None:
+            rescue_chunk(*held)
     if not outs:
         return (*_empty(d, device), 0)
     elements, refs, found, accepted, needs_retry = (

@@ -19,6 +19,7 @@ from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
 from multimesh_tpu_torch.core import shape  # noqa: E402
 from multimesh_tpu_torch.ops import dedup as tdedup  # noqa: E402
 from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
+from multimesh_tpu_torch.search import knn as tknn  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
 from multimesh_tpu_torch.search import nearest, newton, polish  # noqa: E402
 
@@ -834,6 +835,56 @@ def test_newton_kernel_order1_sparse_ids_over_an_exodus_source(dev):
     assert (ka == pa).double().mean() >= 0.9999
     assert (ka & pa).double().mean() > 0.9
     assert float((k_ref - p_ref)[ka & pa].abs().max()) <= 1e-5
+
+
+def test_chunk_round1_accepts_whole_skips_the_rescue_rounds(dev,
+                                                            monkeypatch):
+    """262,144 targets inside the 4,096-element shell, one chunk that
+    round 1 accepts whole: K1 launches once and neither the top-8 rescue
+    (``centred_topk``) nor round 4's ``knn`` runs.  The result is bit for
+    bit what the fixed buckets (``_rescue_rows`` patched back to its cap)
+    give on the card, and the allocator's peak rises less during the
+    call."""
+    src = testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=4)
+    assert src.nelem == 4_096
+    pts = torch.as_tensor(testing.shell_targets(262_144, seed=9), device=dev)
+    calls = []
+
+    def watch(name):
+        fn = getattr(tknn, name)
+
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(tknn, name, wrapped)
+
+    watch("centred_topk")
+    watch("knn")
+
+    def run():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = newton.newton_rows.launches
+        calls.clear()
+        res = tloc.locate(pts, src.points, 4, fallback="snap", device=dev)
+        torch.cuda.synchronize()
+        return (res, newton.newton_rows.launches - n0, list(calls),
+                torch.cuda.max_memory_allocated() - base)
+
+    run()  # the lattice prepared and cached, the kernels loaded
+    got, launches, got_calls, rise = run()
+    with monkeypatch.context() as m:
+        m.setattr(tloc, "_rescue_rows", lambda B, n_unaccepted: B)
+        want, fixed_launches, fixed_calls, fixed_rise = run()
+    assert bool(got.accepted.all()) and got.n_retry == 0
+    assert launches == 1 and got_calls == []
+    assert fixed_launches == 4
+    assert fixed_calls == ["centred_topk", "knn"]
+    for f in ("elements", "refs", "weights", "found", "accepted"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert rise < fixed_rise, (rise, fixed_rise)
 
 
 @pytest.mark.parametrize("strategy", ["ladder", "scan"])

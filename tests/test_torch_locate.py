@@ -33,6 +33,7 @@ from multimesh_tpu_torch.config import (  # noqa: E402
     LocateConfig as TLocateConfig,
 )
 from multimesh_tpu_torch.config import FALLBACK_REF_COORD  # noqa: E402
+from multimesh_tpu_torch import utils_profile as tprofile  # noqa: E402
 from multimesh_tpu_torch.search import grid as tgrid  # noqa: E402
 from multimesh_tpu_torch.search import knn as tknn  # noqa: E402
 from multimesh_tpu_torch.search import locate as tloc  # noqa: E402
@@ -567,3 +568,86 @@ def test_polish_attaches_f64_lattice_to_the_cached_prep(grid_shell):
     assert torch.equal(a.nodes64.float(), a.nodes)
     assert tloc._mesh_prep(mesh.points, 2, "cpu") is a
     assert a.nodes64 is not None
+
+
+def _near_centroids(mesh, n, seed):
+    """``n`` points a fifth of the way from an element's node mean to one
+    of its nodes: round 1 finds that element and accepts every row."""
+    rng = np.random.default_rng(seed)
+    el = rng.integers(0, mesh.nelem, n)
+    node = rng.integers(0, mesh.points.shape[1], n)
+    cent = mesh.points.mean(axis=1)[el]
+    return cent + 0.2 * (mesh.points[el, node] - cent)
+
+
+def _exact_columns(mesh, pts, k):
+    """The caller's candidates: the k nearest node means, by f64 distance."""
+    cent = mesh.points.mean(axis=1)
+    d2 = ((pts[:, None, :] - cent[None, :, :]) ** 2).sum(-1)
+    return np.argsort(d2, axis=1, kind="stable")[:, :k]
+
+
+# case -> (source fixture, fallback, use_aabb, chunk); "interior" takes
+# only rows round 1 accepts, "candidates" the caller's 12 columns, "grid"
+# the grid route
+SIZED_CASES = {
+    "sentinel": ("shell", "sentinel", False, 1024),
+    "snap": ("shell", "snap", False, 262_144),
+    "best": ("shell", "best", False, 1024),
+    "fixed_ref": ("shell", "fixed_ref", True, 1024),
+    "interior": ("shell", "snap", False, 1024),
+    "candidates": ("shell", "sentinel", False, 1024),
+    "grid": ("grid_shell", "snap", False, 512),
+    "grid_fixed_ref": ("grid_shell", "fixed_ref", True, 512),
+}
+
+
+@pytest.mark.parametrize("case", list(SIZED_CASES))
+def test_sized_rescue_rounds_equal_the_fixed_buckets(case, request,
+                                                     monkeypatch):
+    """Rescue rounds sized by round 1's failures give bit for bit what
+    the fixed buckets (``_rescue_rows`` patched back to its cap) give: on
+    every fallback, with exterior rows that overflow the caps into the
+    scan retry, on the grid route and on the caller's candidates.  They
+    evaluate no more rows in any round, and a chunk round 1 accepts whole
+    skips rounds 2-4: K1 solves each of its rows once."""
+    fixture, fallback, use_aabb, chunk = SIZED_CASES[case]
+    mesh, pts, _ = request.getfixturevalue(fixture)
+    order = mesh.order
+    if fixture == "grid_shell":
+        request.getfixturevalue("grid_route")
+    if case == "interior":
+        pts = _near_centroids(mesh, 3000, seed=5)
+    candidates = (_exact_columns(mesh, pts, 12) if case == "candidates"
+                  else None)
+    monkeypatch.setenv("MMT_PROFILE", "1")
+
+    def run():
+        tprofile.reset_stages()
+        res = tloc.locate(pts, mesh.points, order, fallback=fallback,
+                          use_aabb=use_aabb, candidates=candidates,
+                          chunk=chunk, device="cpu")
+        return res, tprofile.counter_totals()
+
+    got, sized = run()
+    with monkeypatch.context() as m:
+        m.setattr(tloc, "_rescue_rows", lambda B, n_unaccepted: B)
+        want, fixed = run()
+    for f in ("elements", "refs", "weights", "found", "accepted"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.n_retry == want.n_retry
+    n_chunks = -(-len(pts) // chunk)
+    rounds = [f"ladder.round{r}.rows" for r in (2, 3, 4)]
+    assert all(sized.get(r, 0) <= fixed.get(r, 0) for r in rounds)
+    assert sized["k1.rows"] <= fixed["k1.rows"]
+    assert "ladder.rescue.skipped" not in fixed
+    if case == "interior":
+        assert sized["ladder.round1.missed"] == 0 and got.accepted.all()
+        assert all(sized.get(r, 0) == 0 for r in rounds)
+        assert sized["ladder.rescue.skipped"] == n_chunks
+        assert sized["k1.rows"] == len(pts)
+        assert fixed["k1.rows"] > 2 * len(pts)
+    else:
+        assert sized["ladder.round1.missed"] > 0 and got.n_retry > 0
+        assert sized.get("ladder.rescue.skipped", 0) < n_chunks
+        assert sized["k1.rows"] < fixed["k1.rows"]

@@ -100,8 +100,10 @@ def test_spans_nest_in_the_profiler_trace_as_the_code_nests(monkeypatch):
     _on(monkeypatch)
     src = tmt.shell_mesh(n_lat=5, n_lon=5, n_rad=3, order=4,
                          lat_extent=(0.5, 1.2), lon_extent=(0.3, 1.4))
+    # the target's outer layer reaches past the source's, so round 1
+    # leaves rows unaccepted and the rescue rounds run
     tgt = tmt.shell_mesh(n_lat=2, n_lon=2, n_rad=2, order=4,
-                         r_inner=3.6e6, r_outer=6.3e6,
+                         r_inner=3.6e6, r_outer=6.6e6,
                          lat_extent=(0.55, 1.15), lon_extent=(0.35, 1.35))
     data = np.stack([tmt.element_nodal_field(src)] * 2, axis=1)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -136,24 +138,50 @@ def test_ladder_counters_add_up_and_match_a_plain_recount(mesh,
     # the retry scans each of its rows against the full candidate list
     assert counters["k1.rows"] == (sum(counters[r] for r in ROUNDS)
                                    + res.n_retry * CFG.nelem_to_search)
-    # round 1 by hand: the nearest centroid, one Newton solve, the test
+    missed = int((~_round1_accepted(mesh, pts)).sum())
+    assert missed >= 300  # the outside points, at least
+    assert counters["ladder.round1.missed"] == missed
+
+
+def _round1_accepted(mesh, pts):
+    """Round 1 by hand: the nearest centroid, one Newton solve, the test;
+    [N] bool."""
     prep = tlocate._mesh_prep(mesh.points, 4, torch.device("cpu"))
     q = torch.as_tensor(pts, dtype=torch.float64)
     near = tknn.nearest_centroid(prep.centroids, q, plain=True)
     ref, res1 = tnewton.newton_refs_rows_ref(
         q, near, prep.ctr, prep.inv_scale, prep.nodes, 4, 3,
         CFG.newton_iters + CFG.polish_iters, CFG.newton_clamp)
-    accepted = (res1 < 1e-4) & (ref.abs().amax(dim=-1) < CFG.accept_tol)
-    missed = int((~accepted).sum())
-    assert missed >= 300  # the outside points, at least
-    assert counters["ladder.round1.missed"] == missed
+    return (res1 < 1e-4) & (ref.abs().amax(dim=-1) < CFG.accept_tol)
+
+
+def test_rescue_rounds_are_sized_by_the_misses_and_skipped_without(
+        mesh, monkeypatch):
+    """Chunks of 256 rows, the outside ones in the last two: a chunk that
+    round 1 accepts whole counts one ``ladder.rescue.skipped`` and no
+    rescue row; every other chunk retries its misses, at most each
+    round's cap, on 3, 4 and 20 columns in rounds 2, 3 and 4."""
+    _on(monkeypatch)
+    pts = _targets(mesh, 900, 300)
+    tlocate.locate(pts, mesh.points, 4, CFG, fallback="snap", device="cpu",
+                   chunk=256)
+    counters = tprofile.counter_totals()
+    accepted = _round1_accepted(mesh, pts)
+    missed = [int((~accepted[s:s + 256]).sum()) for s in range(0, 900, 256)]
+    assert 0 < missed.count(0) < len(missed) and max(missed) > 128
+    assert counters["ladder.rescue.skipped"] == missed.count(0)
+    # caps of a 256-row chunk: 256, 256 and 128 rows
+    for r, cap, cols in ((2, 256, 3), (3, 256, 4), (4, 128, 20)):
+        assert counters[f"ladder.round{r}.rows"] == sum(
+            min(cap, m) * cols for m in missed)
 
 
 def test_grid_route_stages_sit_inside_the_ladder_rounds(mesh, monkeypatch):
     monkeypatch.setattr(tgrid, "APPROX_GRID_MIN_SOURCES", 16)
     _on(monkeypatch)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        tlocate.locate(_targets(mesh, 300, 0), mesh.points, 4, CFG,
+        # outside rows: round 1 misses them, so the rescue rounds run
+        tlocate.locate(_targets(mesh, 300, 100), mesh.points, 4, CFG,
                        fallback="snap", device="cpu")
     ranges = _ranges(prof)
     rounds = ("mmt.locate.round1", "mmt.locate.rounds23",
