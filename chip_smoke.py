@@ -44,15 +44,13 @@ each on stdout:
    the retried rows against the plain path; then 1M of those targets
    through ``strategy="scan"`` and its trilinear prefilter (K1 at order
    1);
-9. the dedup (``phase_dedup``): the hash-grouping kernel of
-   ``csrc/dedup_first.cu`` at the ``mesh_new_1m`` benchmark cell's target
-   (``shell_mesh(20, 20, 20, order=4)`` rotated, 1,000,000 slots) and at
-   the file target below (9,925,250 slots): unique rows and recon bit for
-   bit the host path's ``unique_points(order_by="first")`` and the plain
-   twin's on the card; the kernel's ms (its two entry points on held
-   scratch) against its byte bound, the wrapper's ms
-   (``unique_points_device``: upload, kernel, recon pulled), the twin's
-   and the host path's ms; then the file path: ``api.gll_2_gll`` file to
+9. the dedup (``phase_dedup``): ``dedup_first`` on the card at the
+   ``mesh_new_1m`` benchmark cell's target (``shell_mesh(20, 20, 20,
+   order=4)`` rotated, 1,000,000 slots) and at the file target below
+   (9,925,250 slots): unique rows and recon bit for bit the host path's
+   ``unique_points(order_by="first")``; its ms, the wrapper's
+   (``unique_points_device``: upload, grouping, recon pulled) and the
+   host path's; then the file path: ``api.gll_2_gll`` file to
    file at the ``gll_file``
    configuration -- the same source with VP, VS, RHO and z_node_1D onto
    an order-4 shell target of 79,402 elements (9,925,250 GLL slots,
@@ -62,12 +60,13 @@ each on stdout:
    against its analytic value, the calls bit for bit against each other
    and against the operator built and applied in memory (f32 and
    polished), and K5 against its twin on the polished operator's own
-   rows with the file's 4 fields, in the apply's chunks; the dedup
-   kernel launched once in the first call, not in the warm one, nor in
-   the stored hit with the dedup's caches emptied (it reads
-   ``recon.npy``).  Without ``h5py`` (decided by the import alone)
-   the same arrays go through ``engine.transfer_arrays`` with a numpy
-   sink, and the line says ``"h5py": false``.
+   rows with the file's 4 fields, in the apply's chunks; the target's
+   rows grouped on the card (counter ``dedup.card_rows``) in the
+   profiled first call, not in the warm one, nor in the stored hit with
+   the dedup's caches emptied (it reads ``recon.npy``; profiled too).
+   Without ``h5py`` (decided by the import alone) the same arrays go
+   through ``engine.transfer_arrays`` with a numpy sink, and the line
+   says ``"h5py": false``.
 
 10. the grid route (``phase_big``): the same build + apply at the
    ``gll_big`` shape -- an order-4 shell source of 80 x 78 x 80 = 499,200
@@ -199,10 +198,7 @@ its order-1 times on the Exodus -> GLL path's first chunk
 (``*_order1_chunk``) and on rows spread over its source
 (``*_order1_sparse``),
 K5 also with ``max_rel_diff_file`` against its twin on that call's
-inputs, the dedup kernel (``dedup_first``, last) at the ``mesh_new_1m``
-target, its twin on the card as ``plain_ms``, with
-``launches_file_calls``: its launches in the file path's first, warm
-and stored-hit calls, K4 with ``max_abs_diff_big`` and K5 with ``max_rel_diff_big``
+inputs, K4 with ``max_abs_diff_big`` and K5 with ``max_rel_diff_big``
 against their twins on the first chunk of the grid route's df32 run; the times of K1, K4 and K5 include their grouping pre-pass,
 also timed alone as ``group_ms``, and K4's and K5's kernel alone as
 ``kernel_ms``) and, last, the ``{"ok": true, ...}`` line.  Any
@@ -329,9 +325,7 @@ PORT_KERNELS = ("newton_rows_kernel", "group_count_kernel",
                 "group_scan_tiles_kernel", "group_scan_kernel",
                 "group_scatter_kernel",
                 "nearest_centroid_kernel", "polish_pairs_kernel",
-                "apply_pairs_kernel", "dedup_insert_kernel",
-                "dedup_rank_tiles_kernel", "dedup_scan_totals_kernel",
-                "dedup_emit_kernel")
+                "apply_pairs_kernel")
 # phase_dedup: the mesh_new_1m cell's target (its rotation drawn from the
 # cell's +-0.05 rad)
 DEDUP_MESH_NEW = dict(n_lat=20, n_lon=20, n_rad=20, order=4, r_inner=3.7e6,
@@ -356,7 +350,6 @@ def reset_launches():
     nearest.nearest.launches = 0
     polish.polish_pairs.launches = 0
     polish.apply_pairs.launches = 0
-    dedup.dedup_first.launches = 0
 
 
 def read_launches():
@@ -364,8 +357,13 @@ def read_launches():
             "newton_rows_order1": newton.newton_rows.launches_order1,
             "nearest_centroid": nearest.nearest.launches,
             "polish_pairs": polish.polish_pairs.launches,
-            "apply_pairs": polish.apply_pairs.launches,
-            "dedup_first": dedup.dedup_first.launches}
+            "apply_pairs": polish.apply_pairs.launches}
+
+
+def card_rows():
+    """Rows the dedup grouped on the card since ``reset_stages()``
+    (counter ``dedup.card_rows``; counted under ``MMT_PROFILE``)."""
+    return utils_profile.counter_totals().get("dedup.card_rows", 0)
 
 
 def max_rel(vals, truth):
@@ -1245,74 +1243,25 @@ def phase_flagship(dev, src, pts, fields):
     return scan_launches["newton_rows_order1"]
 
 
-def _dedup_kernel_ms(pts_d, n_unique, reps):
-    """Device ms of the dedup kernel's two entry points on scratch and
-    outputs allocated once (``dedup.dedup_first`` without its
-    allocations and its read of U)."""
-    lib = _build.library()
-    n, d = pts_d.shape
-    n_tiles = -(-n // lib.mmt_dedup_tile())
-    T = 1 << (2 * n - 1).bit_length()
-    table = torch.empty((T,), dtype=torch.int32, device=pts_d.device)
-    work = torch.empty((2, n), dtype=torch.int32, device=pts_d.device)
-    tile_sums = torch.empty((n_tiles + 1,), dtype=torch.int32,
-                            device=pts_d.device)
-    recon = torch.empty((n,), dtype=torch.int64, device=pts_d.device)
-    unique = torch.empty((n_unique, d), dtype=torch.float64,
-                         device=pts_d.device)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run():
-        _build.check(lib, lib.mmt_dedup_rank(
-            pts_d.data_ptr(), n, d, table.data_ptr(), T, work[0].data_ptr(),
-            work[1].data_ptr(), tile_sums.data_ptr(), n_tiles, stream),
-            "mmt_dedup_rank")
-        _build.check(lib, lib.mmt_dedup_emit(
-            pts_d.data_ptr(), n, d, work[0].data_ptr(), work[1].data_ptr(),
-            tile_sums.data_ptr(), recon.data_ptr(), unique.data_ptr(),
-            stream), "mmt_dedup_emit")
-
-    ms = cuda_ms(run, reps)
-    check(int(tile_sums[n_tiles]) == n_unique, "the held-scratch run's U")
-    return ms, recon, unique
-
-
 def phase_dedup(dev, smi, targets):
-    """The dedup kernel against the host path and the twin on the card,
-    at each of ``targets`` (name -> [E, n, 3] lattice, the first the
-    kernel line's shape); see the module docstring.  Returns its entry of
-    the ``kernels`` line."""
+    """The card's dedup against the host path at each of ``targets``
+    (name -> [E, n, 3] lattice); see the module docstring."""
     out = {}
-    launches = dedup.dedup_first.launches
     for name, points in targets.items():
         flat = np.ascontiguousarray(points.reshape(-1, points.shape[-1]))
         t0 = time.perf_counter()
         want_u, want_r = dedup.unique_points(points, order_by="first")
         host_ms = (time.perf_counter() - t0) * 1e3
         pts_d = torch.as_tensor(flat, device=dev)
-        runs = [dedup.dedup_first(pts_d) for _ in range(2)]
-        for uniq, recon in runs:
+        for _ in range(2):
+            uniq, recon = dedup.dedup_first(pts_d)
             check(np.array_equal(uniq.cpu().numpy().view(np.int64),
                                  want_u.view(np.int64))
                   and np.array_equal(recon.cpu().numpy(), want_r),
-                  f"the dedup kernel differs from the host path at {name}")
-        twin_u, twin_r = dedup.dedup_first_ref(pts_d)
-        check(torch.equal(twin_u.view(torch.int64),
-                          runs[0][0].view(torch.int64))
-              and torch.equal(twin_r, runs[0][1]),
-              f"the dedup twin differs from the kernel at {name}")
-        del runs, twin_u, twin_r
-        n, U = flat.shape[0], want_u.shape[0]
-        kernel_ms, recon, uniq = _dedup_kernel_ms(pts_d, U, 20)
-        check(torch.equal(uniq.view(torch.int64),
-                          torch.as_tensor(want_u, device=dev).view(
-                              torch.int64))
-              and np.array_equal(recon.cpu().numpy(), want_r),
-              f"the held-scratch dedup differs at {name}")
-        call_ms = cuda_ms(lambda: dedup.dedup_first(pts_d), 10)
-        twin_ms = cuda_ms(lambda: dedup.dedup_first_ref(pts_d), 3)
-        b_ms, b_by = bound(0, PEAK_F64, nbytes(pts_d, recon, uniq))
-        del recon, uniq, pts_d
+                  f"the card's dedup differs from the host path at {name}")
+            del uniq, recon
+        call_ms = cuda_ms(lambda: dedup.dedup_first(pts_d), 3)
+        del pts_d
         fp = hashing.content_fingerprint(points)
         walls = []
         for _ in range(5):
@@ -1327,26 +1276,11 @@ def phase_dedup(dev, smi, targets):
               and np.array_equal(dev_u.cpu().numpy(), want_u),
               f"unique_points_device differs from the host path at {name}")
         dedup._UNIQ_DEV_CACHE.clear()
-        out[name] = {"rows": n, "unique": U, "kernel_ms": kernel_ms,
-                     "call_ms": call_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "bound_share": b_ms / kernel_ms,
+        out[name] = {"rows": flat.shape[0], "unique": want_u.shape[0],
+                     "call_ms": call_ms,
                      "wrapper_ms": sorted(walls)[len(walls) // 2],
-                     "wrapper_ms_runs": walls, "twin_ms": twin_ms,
-                     "host_ms": host_ms}
-    launches = dedup.dedup_first.launches - launches
-    emit({"phase": "dedup", "nvidia_smi": smi, "targets": out,
-          "launches": launches})
-    first = out[next(iter(targets))]
-    return {"name": "dedup_first", "route": "cuda",
-            "source": "multimesh_tpu_torch/csrc/dedup_first.cu",
-            # the JAX package groups on the host (ops/dedup.py, lexsort)
-            "replaces": None, "rows": first["rows"],
-            "ms": first["kernel_ms"], "plain_ms": first["twin_ms"],
-            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "call_ms": first["call_ms"], "wrapper_ms": first["wrapper_ms"],
-            "host_ms": first["host_ms"],
-            # torch.unique(dim=0) orders rows by value, not by first row
-            "library_ms": None}
+                     "wrapper_ms_runs": walls, "host_ms": host_ms}
+    emit({"phase": "dedup", "nvidia_smi": smi, "targets": out})
 
 
 def file_target():
@@ -1476,16 +1410,12 @@ def phase_file(case, smi):
     check(max(rel_a) < 1e-6, f"file path max rel errs {rel_a} >= 1e-6")
     check(launches_a["newton_rows"] > 0 and launches_a["nearest_centroid"]
           > 0, f"a kernel of the file path was not launched: {launches_a}")
-    check(launches_a["dedup_first"] == 1, f"the first call grouped its "
-          f"target {launches_a['dedup_first']} times on the card, not once")
 
     # (b) warm: the same call again, the in-process caches filled
     reset_launches()
     _, wr, _, wall_warm = case.run()
     launches_b = read_launches()
     check(np.array_equal(wr, wr_a), "the warm call differs from the first")
-    check(launches_b["dedup_first"] == 0, "the warm call grouped its target "
-          "again")
 
     # (c) stored hit: once to save, once to load (timed)
     stored = os.path.join(case.tmpdir, "stored")
@@ -1493,21 +1423,28 @@ def phase_file(case, smi):
     check(np.array_equal(wr, wr_a), "the saving call differs from the first")
     check(os.path.exists(os.path.join(stored, "recon.npy")),
           "the stored operator has no recon.npy")
-    # the dedup's caches emptied, so that a dedup would have to launch,
-    # and put back after it for the calls below
+    # the dedup's caches emptied, so that a dedup would have to run, and
+    # put back after it for the calls below; under MMT_PROFILE=1 for the
+    # counter dedup.card_rows
     held = dict(dedup._UNIQ_CACHE), dict(dedup._UNIQ_DEV_CACHE)
     dedup._UNIQ_CACHE.clear()
     dedup._UNIQ_DEV_CACHE.clear()
-    reset_launches()
-    _, wr, _, wall_hit = case.run(stored_array=stored)
-    launches_c = read_launches()
+    os.environ["MMT_PROFILE"] = "1"
+    try:
+        utils_profile.reset_stages()
+        reset_launches()
+        _, wr, _, wall_hit = case.run(stored_array=stored)
+        launches_c = read_launches()
+        grouped = {"stored_hit": card_rows()}
+    finally:
+        del os.environ["MMT_PROFILE"]
     dedup._UNIQ_CACHE.update(held[0])
     dedup._UNIQ_DEV_CACHE.update(held[1])
     del held
     check(np.array_equal(wr, wr_a), "the stored hit differs from the first")
     check(launches_c["newton_rows"] == 0, "the stored hit located again")
-    check(launches_c["dedup_first"] == 0, "the stored hit grouped its "
-          "target on the card: recon.npy was not used")
+    check(grouped["stored_hit"] == 0, "the stored hit grouped its target "
+          "on the card: recon.npy was not used")
     del wr
 
     # the operator built and applied in memory, on the card
@@ -1562,11 +1499,16 @@ def phase_file(case, smi):
         utils_profile.reset_stages()
         wall_prof_first = case.run()[3]
         stages = utils_profile.stage_totals()
+        grouped["first"] = card_rows()
         utils_profile.reset_stages()
         wall_prof_warm = case.run()[3]
         stages_warm = utils_profile.stage_totals()
+        grouped["warm"] = card_rows()
     finally:
         del os.environ["MMT_PROFILE"]
+    check(grouped["first"] == n_slots, f"the first call grouped "
+          f"{grouped['first']} rows on the card, not its {n_slots} slots")
+    check(grouped["warm"] == 0, "the warm call grouped its target again")
     # the pinned host buffer stream_write allocates in every call
     # (engine._start_pull): torch keeps freed pinned blocks, so the first
     # of two buffers held together takes the block the calls above left
@@ -1600,10 +1542,8 @@ def phase_file(case, smi):
           "k5_file_max_rel_diff": k5_rel, "num_missing": num_missing,
           "n_retry": n_retry, "launches_first": launches_a,
           "launches_warm": launches_b, "launches_stored_hit": launches_c,
-          "launches_df32": launches_d})
-    return launches_d, max(k5_rel), {
-        "first": launches_a["dedup_first"], "warm": launches_b["dedup_first"],
-        "stored_hit": launches_c["dedup_first"]}
+          "launches_df32": launches_d, "dedup_card_rows": grouped})
+    return launches_d, max(k5_rel)
 
 
 def big_source():
@@ -3496,11 +3436,9 @@ def main():
         mesh_new = np.stack([c * mesh_new[..., 0] - s_ * mesh_new[..., 1],
                              s_ * mesh_new[..., 0] + c * mesh_new[..., 1],
                              mesh_new[..., 2]], axis=-1)
-        kd = phase_dedup(dev, smi, {"mesh_new_1m": mesh_new,
-                                    "file": tgt.points})
+        phase_dedup(dev, smi, {"mesh_new_1m": mesh_new, "file": tgt.points})
         del mesh_new
-        (launches_file, k5["max_rel_diff_file"],
-         kd["launches_file_calls"]) = phase_file(
+        launches_file, k5["max_rel_diff_file"] = phase_file(
             FileCase(src, tgt, tmpdir, dev), smi)
         clear_caches()
         launches_e2g, k1_sparse = phase_exodus_gll(dev, smi, tgt, tmpdir)
@@ -3537,8 +3475,7 @@ def main():
     # the grid route's df32 run and of the pipelines' phases (the layered
     # one's df32 call); K1's order-1 ones of the scan's
     for entry, name in ((k1, "newton_rows"), (k2, "nearest_centroid"),
-                        (k4, "polish_pairs"), (k5, "apply_pairs"),
-                        (kd, "dedup_first")):
+                        (k4, "polish_pairs"), (k5, "apply_pairs")):
         entry["launches"] = launches[name]
         entry["launches_file"] = launches_file[name]
         entry["launches_big"] = launches_big[name]
@@ -3563,7 +3500,7 @@ def main():
             for tag, rec in orders.items()}
     k1["launches_order1"] = order1
     print(smi, flush=True)
-    emit({"kernels": [k1, k2, k4, k5, kd]})
+    emit({"kernels": [k1, k2, k4, k5]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -51,10 +51,6 @@ _SIGNATURES = {
     # stream
     "mmt_apply_pairs": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                         _P, _P),
-    # points, N, dim, table, T, work, rank, tile_sums, n_tiles, stream
-    "mmt_dedup_rank": (_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _P),
-    # points, N, dim, work, rank, tile_sums, recon, unique, stream
-    "mmt_dedup_emit": (_P, _I64, _I32, _P, _P, _P, _P, _P, _P),
 }
 
 _library = None
@@ -129,9 +125,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        for name in ("mmt_group_scan_tile", "mmt_dedup_tile"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        lib.mmt_group_scan_tile.argtypes = []
+        lib.mmt_group_scan_tile.restype = ctypes.c_int
         lib.mmt_error_string.argtypes = [ctypes.c_int]
         lib.mmt_error_string.restype = ctypes.c_char_p
         _library = lib

@@ -8,10 +8,8 @@ host numpy of the JAX package's ``ops/dedup.py``, bit for bit; the device
 copy of the unique points is a ``torch.Tensor``.
 
 On a CUDA device the first-appearance dedup runs on the card
-(``dedup_first``: the hash-grouping kernel of ``csrc/dedup_first.cu``,
-whose plain PyTorch twin is ``dedup_first_ref``), with the same unique
-rows, in the same order, and the same reconstruction indices as the host
-path.
+(``dedup_first``, sorts and scans in PyTorch), with the same unique rows,
+in the same order, and the same reconstruction indices as the host path.
 """
 from __future__ import annotations
 
@@ -21,11 +19,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .. import _build
 from ..hashing import content_fingerprint
 from ..utils_profile import count
-
-_MAX_ROWS = 2**31 - 1  # int32 row indices in the kernel
 
 
 def unique_points(
@@ -75,13 +70,13 @@ def unique_points(
     return unique, recon
 
 
-def dedup_first_ref(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the kernel: (unique [U, d], recon [N] int64)
-    of ``points`` [N, d] f64 in first-appearance order, as
+def dedup_first(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unique [U, d], recon [N] int64) of ``points`` [N, d] f64 on their
+    device, in first-appearance order, as
     ``unique_points(order_by="first")``.  Stable sorts by each column,
     the last first, make rows that compare equal (``==``: -0.0 equals
     +0.0, a NaN equals nothing) neighbours; a group's unique row is its
-    first row."""
+    first row.  Reading U is the one sync."""
     n = points.shape[0]
     keys = points + 0.0  # -0.0 + 0.0 is +0.0: one sort key per == class
     order = torch.arange(n, device=points.device)
@@ -100,56 +95,6 @@ def dedup_first_ref(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     recon = torch.empty(n, dtype=torch.int64, device=points.device)
     recon[order] = new_id[group]
     return points[first], recon
-
-
-def dedup_first(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(unique [U, d], recon [N] int64) of ``points`` [N, d] f64 on their
-    device, in first-appearance order (``dedup_first_ref``'s contract).
-    CPU tensors run the twin; CUDA tensors launch the hash-grouping
-    kernel, which syncs once to read U; its scratch (a 2^k >= 2N slot
-    table and 2N int32) is freed on return."""
-    if points.dtype != torch.float64 or points.dim() != 2 \
-            or points.shape[1] not in (2, 3):
-        raise ValueError(f"dedup_first: points must be [N, 2|3] float64, "
-                         f"got {points.dtype} {tuple(points.shape)}")
-    device = points.device
-    if device.type == "cpu":
-        return dedup_first_ref(points)
-    if device.type != "cuda":
-        raise ValueError(f"dedup_first: unsupported device {device}")
-    n, d = points.shape
-    if n > _MAX_ROWS:
-        raise ValueError(f"dedup_first: {n} rows, more than the int32 "
-                         f"row indices hold")
-    recon = torch.empty((n,), dtype=torch.int64, device=device)
-    if n == 0:
-        return points.new_empty((0, d)), recon
-    points = points.contiguous()
-    lib = _build.library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    n_tiles = -(-n // lib.mmt_dedup_tile())
-    T = 1 << (2 * n - 1).bit_length()
-    table = torch.empty((T,), dtype=torch.int32, device=device)
-    work = torch.empty((2, n), dtype=torch.int32, device=device)
-    tile_sums = torch.empty((n_tiles + 1,), dtype=torch.int32, device=device)
-    err = lib.mmt_dedup_rank(points.data_ptr(), n, d, table.data_ptr(), T,
-                             work[0].data_ptr(), work[1].data_ptr(),
-                             tile_sums.data_ptr(), n_tiles, stream)
-    _build.check(lib, err, "dedup_first")
-    del table
-    U = int(tile_sums[n_tiles])  # the one sync: unique's size
-    unique = torch.empty((U, d), dtype=torch.float64, device=device)
-    err = lib.mmt_dedup_emit(points.data_ptr(), n, d, work[0].data_ptr(),
-                             work[1].data_ptr(), tile_sums.data_ptr(),
-                             recon.data_ptr(), unique.data_ptr(), stream)
-    _build.check(lib, err, "dedup_first")
-    dedup_first.launches += 1
-    count("dedup.card_rows", n)
-    count("dedup.unique_rows", U)
-    return unique, recon
-
-
-dedup_first.launches = 0  # kernel launches in this process
 
 
 _UNIQ_CACHE: dict = {}  # (content fingerprint, order_by) -> (unique, recon)
@@ -202,7 +147,7 @@ def unique_points_device(
     if hit is None:
         if device.type == "cuda" and order_by == "first":
             pts = np.asarray(points)
-            # f64, as the kernel takes it (exact for f32 coordinates)
+            # f64 (exact for f32 coordinates): the host path's groups
             flat = np.ascontiguousarray(pts.reshape(-1, pts.shape[-1]),
                                         dtype=np.float64)
             with warnings.catch_warnings():
@@ -210,6 +155,8 @@ def unique_points_device(
                 warnings.filterwarnings("ignore", message=".*not writable")
                 flat = torch.as_tensor(flat, device=device)
             uniq, recon = dedup_first(flat)
+            count("dedup.card_rows", len(flat))
+            count("dedup.unique_rows", len(uniq))
             hit = (uniq, recon.cpu().numpy())
         else:
             uniq, recon = unique_points_cached(points, fingerprint, order_by)

@@ -343,8 +343,9 @@ DEDUP_EDGE_CASES = ("signed_zero", "nan", "one_row", "all_equal",
 
 def dedup_edge_points(case: str) -> np.ndarray:
     """An input [N, d] f64 at one edge of the dedup's grouping
-    (``DEDUP_EDGE_CASES``): the card's kernel, its plain twin and the
-    host path are held to each other on the same ones."""
+    (``DEDUP_EDGE_CASES``): the first-appearance grouping
+    (``dedup_first``) on the CPU and on the card and the host path are
+    held to each other on the same ones."""
     if case == "signed_zero":  # -0.0 == +0.0: one group, the first bits
         return np.array([[-0.0, 1.0, 0.0], [0.0, 1.0, -0.0], [2.0, 0.0, 0.0],
                          [0.0, 1.0, 0.0], [-0.0, 1.0, -0.0]])

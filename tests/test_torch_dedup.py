@@ -1,9 +1,9 @@
 """``multimesh_tpu_torch.ops.dedup`` against the JAX package's
 ``ops/dedup.py``: the host dedup is the same numpy, so unique points and
-reconstruction indices agree bit for bit, and so does the plain PyTorch
-twin of the card's kernel (``dedup_first_ref``) with the first-appearance
-order; the caches return the same objects on a hit, hold two entries, and
-the device copy is keyed by its device.
+reconstruction indices agree bit for bit, and so does the grouping the
+card runs (``dedup_first``, PyTorch) with the first-appearance order; the
+caches return the same objects on a hit, hold two entries, and the
+device copy is keyed by its device.
 """
 import numpy as np
 import pytest
@@ -37,9 +37,9 @@ def _points(kind):
 
 
 def _twin(pts):
-    """``dedup_first_ref`` on the flat points, as numpy."""
+    """``dedup_first`` on the flat points, as numpy."""
     flat = torch.as_tensor(pts.reshape(-1, pts.shape[-1]))
-    uniq, recon = tdedup.dedup_first_ref(flat)
+    uniq, recon = tdedup.dedup_first(flat)
     return uniq.numpy(), recon.numpy()
 
 
@@ -48,7 +48,8 @@ def _assert_bits_equal(a, b):
     np.testing.assert_array_equal(a.view(np.int64), b.view(np.int64))
 
 
-# "first_twin": the card kernel's plain twin, against the first order
+# "first_twin": the card's grouping (``dedup_first``), against the first
+# order
 @pytest.mark.parametrize("order_by", ["sorted", "first", "first_twin"])
 @pytest.mark.parametrize("kind",
                          ["shell_3d", "box_2d", "flat_3d", "flat_2d"])
@@ -81,7 +82,7 @@ def test_unique_points_equals_jax(kind, order_by):
 
 @pytest.mark.parametrize("case", testing.DEDUP_EDGE_CASES)
 def test_twin_edge_cases_equal_host_bitwise(case):
-    """``dedup_first_ref`` and the host path agree bit for bit at the
+    """``dedup_first`` and the host path agree bit for bit at the
     grouping's edges, and both follow ``==`` (the JAX package's too)."""
     pts = testing.dedup_edge_points(case)
     uniq, recon = _twin(pts)
@@ -106,14 +107,13 @@ def test_twin_edge_cases_equal_host_bitwise(case):
 
 
 def test_device_dedup_on_cpu_takes_the_host_path(monkeypatch):
-    """``unique_points_device(device="cpu")`` runs the host lexsort (its
-    counters move, the card's does not) and launches nothing."""
+    """``unique_points_device(device="cpu")`` runs the host lexsort: its
+    counters move, the card's does not."""
     monkeypatch.setattr(tdedup, "_UNIQ_CACHE", {})
     monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
     monkeypatch.setenv("MMT_PROFILE", "1")
     pts = _points("box_2d")
     utils_profile.reset_stages()
-    launches = tdedup.dedup_first.launches
     try:
         dev, recon = tdedup.unique_points_device(
             pts, content_fingerprint(pts), device="cpu")
@@ -122,18 +122,22 @@ def test_device_dedup_on_cpu_takes_the_host_path(monkeypatch):
         utils_profile.reset_stages()
     n = pts.shape[0] * pts.shape[1]
     assert counters == {"dedup.host_rows": n, "dedup.unique_rows": len(dev)}
-    assert tdedup.dedup_first.launches == launches
     uniq, want = tdedup.unique_points(pts, order_by="first")
     np.testing.assert_array_equal(dev.numpy(), uniq)
     np.testing.assert_array_equal(recon, want)
 
 
-def test_dedup_first_refuses_what_the_kernel_does_not_take():
-    for bad in (torch.zeros((4, 3), dtype=torch.float32),
-                torch.zeros((4, 4), dtype=torch.float64),
-                torch.zeros((4,), dtype=torch.float64)):
-        with pytest.raises(ValueError, match="dedup_first"):
-            tdedup.dedup_first(bad)
+def test_card_grouping_of_widened_f32_is_the_host_grouping_of_f32():
+    """``unique_points_device``'s CUDA branch widens f32 coordinates to
+    f64 before ``dedup_first``: exact, so the groups, their order and
+    recon are the host path's on the f32 input, and the unique rows are
+    its rows widened."""
+    pts = _points("shell_3d").astype(np.float32)
+    uniq, recon = _twin(pts.astype(np.float64))
+    host_uniq, host_recon = tdedup.unique_points(pts, order_by="first")
+    assert host_uniq.dtype == np.float32
+    _assert_bits_equal(uniq, host_uniq.astype(np.float64))
+    np.testing.assert_array_equal(recon, host_recon)
 
 
 def test_unknown_order_by_raises():

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from multimesh_tpu_torch import TransferOperator, _build, testing  # noqa: E402
+from multimesh_tpu_torch import utils_profile  # noqa: E402
 from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
 from multimesh_tpu_torch.core import shape  # noqa: E402
 from multimesh_tpu_torch.ops import dedup as tdedup  # noqa: E402
@@ -984,12 +985,18 @@ def test_sharded_schemes_at_world_size_1_on_card(dev):
         dist.destroy_process_group()
 
 
-# -- the dedup kernel (csrc/dedup_first.cu) ---------------------------------
-def mesh_new_1m_target(angle=0.03):
-    """The target of the benchmark's ``mesh_new_1m`` jobs, rotated about
-    the polar axis: 8,000 order-4 elements, 1,000,000 slots, 531,441
-    unique points, [E, 125, 3]."""
-    tgt = testing.shell_mesh(n_lat=20, n_lon=20, n_rad=20, order=4,
+# -- the dedup on the card (ops/dedup.py unique_points_device) -------------
+# the targets of the benchmark's mesh jobs: order-4 shells, as
+# ((n_lat, n_lon, n_rad), slots, unique points)
+MESH_NEW = {"mesh_new_1m": ((20, 20, 20), 1_000_000, 531_441),
+            "mesh_new_10m": ((37, 37, 58), 9_925_250, 5_172_833)}
+
+
+def mesh_new_target(case, angle=0.03):
+    """The target of the benchmark's ``case`` jobs, rotated about the
+    polar axis, [E, 125, 3]."""
+    n_lat, n_lon, n_rad = MESH_NEW[case][0]
+    tgt = testing.shell_mesh(n_lat=n_lat, n_lon=n_lon, n_rad=n_rad, order=4,
                              r_inner=3.7e6, r_outer=6.2e6,
                              lat_extent=(0.58, 1.12),
                              lon_extent=(0.38, 1.32))
@@ -1003,32 +1010,48 @@ def _dedup_input(case):
         flat = testing.shell_mesh(n_lat=6, n_lon=6, n_rad=6,
                                   order=4).points.reshape(-1, 3)
         return flat[np.random.default_rng(5).permutation(len(flat))]
-    if case == "mesh_new_1m":
-        return mesh_new_1m_target().reshape(-1, 3)
+    if case in MESH_NEW:
+        return mesh_new_target(case).reshape(-1, 3)
     return testing.dedup_edge_points(case)
 
 
+def _card_dedup(pts, dev):
+    """``unique_points_device`` on the card with its cache emptied, under
+    ``MMT_PROFILE``: (unique rows, recon, its dedup counters)."""
+    tdedup._UNIQ_DEV_CACHE.clear()
+    utils_profile.reset_stages()
+    uniq, recon = tdedup.unique_points_device(pts, 1, device=dev)
+    counters = {k: v for k, v in utils_profile.counter_totals().items()
+                if k.startswith("dedup.")}
+    utils_profile.reset_stages()
+    return uniq, recon, counters
+
+
 @pytest.mark.parametrize("case", list(testing.DEDUP_EDGE_CASES)
-                         + ["shuffled", "mesh_new_1m"])
-def test_dedup_kernel_matches_host_path_bitwise(dev, case):
-    """The kernel's unique rows and recon against the host path's
-    ``unique_points(order_by="first")``, bit for bit, on three runs of
-    the same input (identical outputs whatever order the threads ran
-    in); the launch count rises by one a call."""
+                         + ["shuffled", *MESH_NEW])
+def test_dedup_kernel_matches_host_path_bitwise(dev, case, monkeypatch):
+    """The card's dedup (``unique_points_device``'s CUDA branch:
+    ``dedup_first`` on the rows uploaded as f64) against the host path's
+    ``unique_points(order_by="first")``: unique rows and recon bit for
+    bit, on three runs of the same input; each run counts its rows as
+    grouped on the card and none on the host."""
+    monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
     pts = _dedup_input(case)
     want_u, want_r = tdedup.unique_points(pts, order_by="first")
-    if case == "mesh_new_1m":
-        assert pts.shape == (1_000_000, 3) and len(want_u) == 531_441
+    if case in MESH_NEW:
+        _, n_slots, n_unique = MESH_NEW[case]
+        assert pts.shape == (n_slots, 3) and len(want_u) == n_unique
+    monkeypatch.setenv("MMT_PROFILE", "1")
     for _ in range(3):
-        before = tdedup.dedup_first.launches
-        uniq, recon = tdedup.dedup_first(torch.as_tensor(pts, device=dev))
-        assert tdedup.dedup_first.launches == before + 1
-        assert uniq.device.type == "cuda" and recon.dtype == torch.int64
-        got_u, got_r = uniq.cpu().numpy(), recon.cpu().numpy()
+        uniq, recon, counters = _card_dedup(pts, dev)
+        assert counters == {"dedup.card_rows": len(pts),
+                            "dedup.unique_rows": len(want_u)}
+        assert uniq.device.type == "cuda" and recon.dtype == np.int64
+        got_u = uniq.cpu().numpy()
         assert got_u.shape == want_u.shape
         np.testing.assert_array_equal(got_u.view(np.int64),
                                       want_u.view(np.int64))
-        np.testing.assert_array_equal(got_r, want_r)
+        np.testing.assert_array_equal(recon, want_r)
 
 
 def test_device_dedup_takes_f32_coordinates(dev, monkeypatch):
@@ -1039,9 +1062,9 @@ def test_device_dedup_takes_f32_coordinates(dev, monkeypatch):
     pts = testing.shell_mesh(n_lat=4, n_lon=4, n_rad=4,
                              order=4).points.astype(np.float32)
     want_u, want_r = tdedup.unique_points(pts, order_by="first")
-    before = tdedup.dedup_first.launches
-    uniq, recon = tdedup.unique_points_device(pts, 1, device=dev)
-    assert tdedup.dedup_first.launches == before + 1
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    uniq, recon, counters = _card_dedup(pts, dev)
+    assert counters["dedup.card_rows"] == pts.shape[0] * pts.shape[1]
     assert uniq.dtype == torch.float64
     np.testing.assert_array_equal(uniq.cpu().numpy(),
                                   want_u.astype(np.float64))
@@ -1077,12 +1100,16 @@ def test_transfer_arrays_card_dedup_matches_host_dedup(dev, tmp_path,
         uniq, recon = tdedup.unique_points(points, order_by=order_by)
         return torch.as_tensor(uniq, device=device), recon
 
-    before = tdedup.dedup_first.launches
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    utils_profile.reset_stages()
     card = run(tmp_path / "card")
-    assert tdedup.dedup_first.launches == before + 1
+    n_slots = tgt.points.shape[0] * tgt.points.shape[1]
+    assert utils_profile.counter_totals()["dedup.card_rows"] == n_slots
     monkeypatch.setattr(engine, "unique_points_device", host_dedup)
+    utils_profile.reset_stages()
     host = run(tmp_path / "host")
-    assert tdedup.dedup_first.launches == before + 1
+    assert "dedup.card_rows" not in utils_profile.counter_totals()
+    utils_profile.reset_stages()
     np.testing.assert_array_equal(card.view(np.int64), host.view(np.int64))
     assert ((tmp_path / "card" / "recon.npy").read_bytes()
             == (tmp_path / "host" / "recon.npy").read_bytes())
