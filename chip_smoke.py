@@ -63,7 +63,11 @@ each on stdout:
    rows with the file's 4 fields, in the apply's chunks; the target's
    rows grouped on the card (counter ``dedup.card_rows``) in the
    profiled first call, not in the warm one, nor in the stored hit with
-   the dedup's caches emptied (it reads ``recon.npy``; profiled too).
+   the dedup's caches emptied (it reads ``recon.npy``; profiled too);
+   the result expanded on the card (counter ``expand.card_slots``, every
+   slot, in the profiled calls; span ``g2g.expand`` inside
+   ``g2g.stream_write``, both reported) and the warm call pinning no new
+   host memory (``num_host_alloc`` of the caching host allocator).
    Without ``h5py`` (decided by the import alone) the same arrays go
    through ``engine.transfer_arrays`` with a numpy sink, and the line
    says ``"h5py": false``.
@@ -364,6 +368,14 @@ def card_rows():
     """Rows the dedup grouped on the card since ``reset_stages()``
     (counter ``dedup.card_rows``; counted under ``MMT_PROFILE``)."""
     return utils_profile.counter_totals().get("dedup.card_rows", 0)
+
+
+def expand_counts():
+    """The expansion's counters since ``reset_stages()``:
+    ``expand.card_slots`` and ``expand.patched_elems``."""
+    counters = utils_profile.counter_totals()
+    return {k: counters.get(k, 0)
+            for k in ("expand.card_slots", "expand.patched_elems")}
 
 
 def max_rel(vals, truth):
@@ -1411,11 +1423,16 @@ def phase_file(case, smi):
     check(launches_a["newton_rows"] > 0 and launches_a["nearest_centroid"]
           > 0, f"a kernel of the file path was not launched: {launches_a}")
 
-    # (b) warm: the same call again, the in-process caches filled
+    # (b) warm: the same call again, the in-process caches filled; its
+    # pinned staging buffer taken from the caching host allocator
     reset_launches()
+    pinned = torch.cuda.host_memory_stats()["num_host_alloc"]
     _, wr, _, wall_warm = case.run()
+    pinned_warm = torch.cuda.host_memory_stats()["num_host_alloc"] - pinned
     launches_b = read_launches()
     check(np.array_equal(wr, wr_a), "the warm call differs from the first")
+    check(pinned_warm == 0, f"the warm call pinned {pinned_warm} new host "
+          "blocks")
 
     # (c) stored hit: once to save, once to load (timed)
     stored = os.path.join(case.tmpdir, "stored")
@@ -1500,27 +1517,24 @@ def phase_file(case, smi):
         wall_prof_first = case.run()[3]
         stages = utils_profile.stage_totals()
         grouped["first"] = card_rows()
+        expanded = {"first": expand_counts()}
         utils_profile.reset_stages()
         wall_prof_warm = case.run()[3]
         stages_warm = utils_profile.stage_totals()
         grouped["warm"] = card_rows()
+        expanded["warm"] = expand_counts()
     finally:
         del os.environ["MMT_PROFILE"]
     check(grouped["first"] == n_slots, f"the first call grouped "
           f"{grouped['first']} rows on the card, not its {n_slots} slots")
     check(grouped["warm"] == 0, "the warm call grouped its target again")
-    # the pinned host buffer stream_write allocates in every call
-    # (engine._start_pull): torch keeps freed pinned blocks, so the first
-    # of two buffers held together takes the block the calls above left
-    # and the second has to be pinned anew
-    pinned_s, held = {}, []
-    for kind in ("cached", "fresh"):
-        t0 = time.perf_counter()
-        held.append(torch.empty((n_unique, len(case.params)),
-                                dtype=torch.float32, pin_memory=True))
-        pinned_s[kind] = time.perf_counter() - t0
-    del held
-    want = {"g2g.fingerprint", "g2g.dedup", "g2g.apply", "g2g.stream_write"}
+    # every slot expanded on the card; no element reverted (the target
+    # has no fluid and no zero VS: the values equal the in-memory
+    # operator's, which knows no repair)
+    check(all(c == {"expand.card_slots": n_slots, "expand.patched_elems": 0}
+              for c in expanded.values()), f"expansion counters {expanded}")
+    want = {"g2g.fingerprint", "g2g.dedup", "g2g.apply", "g2g.stream_write",
+            "g2g.expand"}
     if case.have_h5py:
         want |= {"g2g.read_source", "g2g.read_target"}
     check(want <= set(stages), f"stages {sorted(stages)}")
@@ -1536,7 +1550,12 @@ def phase_file(case, smi):
           "stages_s": stages, "wall_profiled_first_s": wall_prof_first,
           "stages_warm_s": stages_warm,
           "wall_profiled_warm_s": wall_prof_warm,
-          "pinned_alloc_s": pinned_s, "parameters": case.params,
+          "stream_write_s": {k: st["g2g.stream_write"] for k, st in (
+              ("first", stages), ("warm", stages_warm))},
+          "expand_s": {k: st["g2g.expand"] for k, st in (
+              ("first", stages), ("warm", stages_warm))},
+          "expand_counters": expanded, "pinned_new_blocks_warm": pinned_warm,
+          "parameters": case.params,
           "max_rel_err": rel_a, "max_rel_err_df32": rel_d,
           "k5_file_rows": k5_rows, "k5_file_params": int(fields.shape[0]),
           "k5_file_max_rel_diff": k5_rel, "num_missing": num_missing,

@@ -38,12 +38,12 @@ from .ops import (
     TransferOperator,
     map_to_sphere,
     mesh_layer_masks,
-    repair_fluid_solid,
     unique_points_device,
     unique_points_per_layer,
 )
+from .ops.fluid import shear_index
 from .progress import progress as _progress
-from .utils_profile import stage_timer
+from .utils_profile import count, stage_timer
 
 PathLike = Union[str, pathlib.Path]
 
@@ -281,14 +281,10 @@ def transfer_arrays(
             print(f"Ignoring stored operator at {stored_array}: it has no "
                   "recon.npy; rebuilding")
             op = None
-    if op is not None:
-        recon = op.recon.cpu().numpy()
-    else:
+    if op is None:
         with stage_timer("g2g.dedup"):
-            # first-appearance unique ordering: prefixes of the slot array
-            # then reference prefixes of the unique values, which is what
-            # lets _stream_expand_write start on the first elements while
-            # later chunks are still being copied to the host
+            # first-appearance unique ordering, the JAX package's: a
+            # stored operator's rows and recon.npy pass between the two
             uniq, recon = unique_points_device(
                 new_points, fp_tgt, order_by="first", device=device
             )
@@ -309,10 +305,9 @@ def transfer_arrays(
 
     fields = np.ascontiguousarray(np.moveaxis(src_data, 1, 0))  # [P, E, n]
     with stage_timer("g2g.apply"):
-        # UNIQUE values only, as a list of device chunks: reconstruction
-        # to the ~2x larger slot array happens on the host, streamed
-        # chunk by chunk below
-        chunks, CH = op.apply(fields, out_chunks=True)
+        # UNIQUE values only, as a list of device chunks: the expansion
+        # to the ~2x larger slot array is the write's (below)
+        chunks, _ = op.apply(fields, out_chunks=True)
     # NaN audit: one device reduction over the chunks and one host read,
     # before anything is written (expansion cannot introduce NaNs, so
     # auditing the unique values covers the full result)
@@ -326,7 +321,7 @@ def transfer_arrays(
 
     with stage_timer("g2g.stream_write"):
         values = _stream_expand_write(
-            open_sink, chunks, CH, recon, parameters, gll_points,
+            open_sink, chunks, op.recon, parameters, gll_points,
             old_values, solid, gradient,
         )
     return values
@@ -387,67 +382,63 @@ def _start_pull(chunks, CH: int):
 
 
 def _stream_expand_write(
-    open_sink, chunks, CH, recon, parameters, gll_points, old_values, solid,
-    gradient,
+    open_sink, chunks, recon, parameters, gll_points, old_values, solid,
+    gradient, block_bytes: int = 1 << 25,
 ):
-    """Pipelined device->host pull + host expansion + write-back.
+    """Expansion where the unique values live, then a pipelined pull +
+    write-back of finished f64 element blocks.
 
-    The host expansion (recon gather + [E, n, P] -> [E, P, n] relayout +
-    fluid repair + write) starts on the elements whose unique values have
-    landed while the later chunks are still being copied (``_start_pull``).
-    ``chunks`` must stay alive until this returns; they do, as arguments.
-
-    Streaming needs ``max(recon[:m])`` monotone in ``m`` -- guaranteed
-    when the dedup used order_by="first" (ops.dedup).  Any other recon
-    (e.g. an externally built stored_array) degrades gracefully: the
-    element boundaries collapse toward the final chunk and the write
-    simply happens after the full pull, bit-identically.
+    On the chunks' device (``apply(out_chunks=True)``'s unique rows) the
+    values are gathered by ``recon`` (any order), relaid [E, n, P] ->
+    [E, P, n] and cast to f64, and the elements ``repair_fluid_solid``
+    would revert are picked (fluid, or solid with a zero VS / VSV: a value
+    is zero in f32 exactly when it is in f64); none with ``gradient``.
+    The blocks of about ``block_bytes`` are copied to the host through
+    ``_start_pull``, and block j goes into ``values``, its picked elements
+    back to ``old_values``, then into the sink, while later blocks are
+    still being copied.  ``values`` is an ordinary host array: it does not
+    alias the pinned buffer, which the caching host allocator takes back
+    on return.
     """
     n_elem = old_values.shape[0]
     n_par = len(parameters)
-    U = sum(int(c.shape[0]) for c in chunks)
-
-    # last element writable after chunk j: cumulative max unique id per
-    # element prefix vs pulled-row watermark (j+1)*CH
-    elem_max = np.maximum.accumulate(
-        recon.reshape(n_elem, gll_points).max(axis=1)
-    )
-    limits = [min((j + 1) * CH, U) for j in range(len(chunks))]
-    e_bounds = np.searchsorted(elem_max, limits, side="left")
-    e_bounds[-1] = n_elem
+    dev = chunks[0].device
+    blk = max(1, block_bytes // (n_par * gll_points * 8))
+    with stage_timer("g2g.expand"):
+        uniq = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        recon = torch.as_tensor(recon, device=dev)
+        out = torch.empty((n_elem, n_par, gll_points), dtype=torch.float64,
+                          device=dev)
+        for s in range(0, n_elem, blk):
+            e = min(s + blk, n_elem)
+            rows = uniq.index_select(0, recon[s * gll_points:e * gll_points])
+            out[s:e] = rows.view(e - s, gll_points, n_par).transpose(1, 2)
+        patched = np.empty(0, np.int64)
+        if not gradient:
+            revert = ~torch.as_tensor(solid, device=dev)
+            vs = shear_index(parameters)
+            if vs is not None:
+                revert |= (out[:, vs] == 0).any(dim=1)
+            patched = np.flatnonzero(revert.cpu().numpy())
+    count("expand.card_slots", n_elem * gll_points)
+    count("expand.patched_elems", len(patched))
 
     sink = open_sink(parameters)
     values = np.empty((n_elem, n_par, gll_points), np.float64)
-    blk = max(1, (1 << 25) // max(1, n_par * gll_points * 8))
-    vals_host, wait = _start_pull(chunks, CH)
-
+    host, wait = _start_pull(list(out.split(blk)), blk)
     pbar = _progress(n_elem, "write-back", unit="elems",
                      n_steps=-(-n_elem // blk))
-    prev_e = 0
-    for j in range(len(chunks)):
+    for j, s in enumerate(range(0, n_elem, blk)):
+        e = min(s + blk, n_elem)
         with stage_timer("g2g.pull_wait"):
             wait(j)
-        # expand/repair/write all elements newly covered by chunk j.  The
-        # expansion converts to f64 in the same pass -- fluid /
-        # reverted-solid elements then keep their original values
-        # BIT-exactly, and the dataset is f64 anyway.
-        for s in range(prev_e, int(e_bounds[j]), blk):
-            e = min(s + blk, int(e_bounds[j]))
-            rb = recon[s * gll_points : e * gll_points]
-            block = np.asarray(
-                vals_host[rb]
-                .reshape(e - s, gll_points, n_par)
-                .transpose(0, 2, 1),
-                dtype=np.float64, order="C",
-            )  # [blk, P, n]
-            if not gradient:
-                block = repair_fluid_solid(
-                    block, old_values[s:e], solid[s:e], parameters
-                )
-            values[s:e] = block
-            sink[s:e] = block
-            pbar.step(e - s)
-        prev_e = int(e_bounds[j])
+        # torch's copy runs on its intra-op threads, so the first touch
+        # of the fresh pages of ``values`` is spread over the cores
+        torch.from_numpy(values[s:e]).copy_(torch.from_numpy(host[s:e]))
+        a, b = np.searchsorted(patched, (s, e))
+        values[patched[a:b]] = old_values[patched[a:b]]
+        sink[s:e] = values[s:e]
+        pbar.step(e - s)
     pbar.close()
     return values
 

@@ -35,11 +35,9 @@ def unique_points(
     path is substantially slower at the 1e7+ point counts we target).
 
     ``order_by="first"`` relabels the unique points in order of FIRST
-    APPEARANCE in the flat input instead of lexicographic order.  Then
-    ``max(recon[:m])`` is monotone in ``m``: every prefix of the input
-    references only a prefix of the unique array, which lets the engine's
-    file path expand and write the first elements while later chunks of
-    unique values are still on their way from the device.
+    APPEARANCE in the flat input instead of lexicographic order: the
+    order of the file path's operator rows and ``recon.npy`` in both
+    packages.
     """
     pts = np.asarray(points)
     if pts.ndim == 3:

@@ -33,13 +33,19 @@ def repair_fluid_solid(
     new_values[~solid_elements] = old_values[~solid_elements]
 
     # 2. solid elements that received zero shear velocity revert entirely
-    if "VS" in parameters:
-        vs_index = parameters.index("VS")
-    elif "VSV" in parameters:
-        vs_index = parameters.index("VSV")
-    else:
+    vs_index = shear_index(parameters)
+    if vs_index is None:
         return new_values
     zero_vs = (new_values[:, vs_index, :] == 0.0).any(axis=1)
     revert = zero_vs & solid_elements
     new_values[revert] = old_values[revert]
     return new_values
+
+
+def shear_index(parameters: List[str]) -> int | None:
+    """Index of the shear velocity whose zero reverts a solid element:
+    VS, else VSV; None when ``parameters`` hold neither."""
+    for name in ("VS", "VSV"):
+        if name in parameters:
+            return parameters.index(name)
+    return None

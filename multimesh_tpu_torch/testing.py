@@ -8,6 +8,7 @@ arguments give the same arrays as the JAX package's fixtures.
 from __future__ import annotations
 
 import dataclasses
+import os
 import types
 
 import numpy as np
@@ -362,3 +363,18 @@ def dedup_edge_points(case: str) -> np.ndarray:
     if case == "d2":
         return np.random.default_rng(4).integers(0, 5, (300, 2)) / 2.0
     raise ValueError(case)
+
+
+def reverse_stored_operator(src_dir, dst_dir) -> None:
+    """Copy the compact stored operator at ``src_dir`` (``TransferOperator
+    .save``) to ``dst_dir`` with its unique rows in reverse order and its
+    recon renumbered to match: the same operator in an order no dedup
+    gives, for the expansion's tests."""
+    os.makedirs(dst_dir)
+    for name in os.listdir(src_dir):
+        a = np.load(os.path.join(src_dir, name))
+        if name == "recon.npy":
+            a = a.max() - a
+        elif name != "meta.npy":
+            a = a[::-1]
+        np.save(os.path.join(dst_dir, name), np.ascontiguousarray(a))

@@ -322,16 +322,11 @@ def test_apply_out_chunks_equals_unexpanded_apply(route, small_ops):
 
 
 # -- _stream_expand_write --------------------------------------------------
-@pytest.mark.parametrize("gradient", [False, True])
-@pytest.mark.parametrize("order_by", ["first", "sorted", "reversed"])
-def test_stream_expand_write_equals_direct_expansion(order_by, gradient):
-    """Several small chunks through ``_stream_expand_write`` against the
-    direct ``vals[recon]`` + relayout + repair, bit for bit: with a
-    first-appearance recon (elements are written as their chunks land),
-    a sorted-order one, and the first-appearance one reversed (the first
-    element needs the last chunk: the element bounds collapse and all is
-    written after the full pull); fluid and zero-VS elements keep their
-    old f64 values unless ``gradient``."""
+def _expand_case(order_by):
+    """A small target's recon (first-appearance, sorted, or the
+    first-appearance one reversed), its unique f32 values in chunks of 40
+    rows, old values, elements 0 and 7 fluid and a zero VS in solid
+    element 4."""
     tgt = tmt.shell_mesh(n_lat=3, n_lon=2, n_rad=2, order=2)
     n_elem, n = tgt.nelem, tgt.n_gll
     if order_by == "reversed":
@@ -345,10 +340,22 @@ def test_stream_expand_write_equals_direct_expansion(order_by, gradient):
     solid = np.ones(n_elem, bool)
     solid[[0, 7]] = False
     vals[recon[4 * n + 5], 1] = 0.0  # a zero VS in solid element 4
-    CH = 40
-    chunks = [torch.from_numpy(vals[s:s + CH])
-              for s in range(0, len(vals), CH)]
+    chunks = [torch.from_numpy(vals[s:s + 40])
+              for s in range(0, len(vals), 40)]
     assert len(chunks) > 3
+    return n_elem, n, vals, recon, chunks, old, solid
+
+
+@pytest.mark.parametrize("gradient", [False, True])
+@pytest.mark.parametrize("order_by", ["first", "sorted", "reversed"])
+def test_stream_expand_write_equals_direct_expansion(order_by, gradient):
+    """Several small chunks through ``_stream_expand_write`` against the
+    direct ``vals[recon]`` + relayout + f64 + repair, bit for bit: with a
+    first-appearance recon, a sorted-order one and the first-appearance
+    one reversed, every element is written once, in element order, in
+    blocks of ``block_bytes``; fluid and zero-VS elements keep their old
+    f64 values unless ``gradient``.  ``values`` owns its memory."""
+    n_elem, n, vals, recon, chunks, old, solid = _expand_case(order_by)
     written = []
 
     class Sink:
@@ -360,23 +367,84 @@ def test_stream_expand_write_equals_direct_expansion(order_by, gradient):
 
     sink = Sink()
     values = tengine._stream_expand_write(
-        lambda names: sink, chunks, CH, recon, list(PARAMS), n, old, solid,
-        gradient)
+        lambda names: sink, chunks, recon, list(PARAMS), n, old, solid,
+        gradient, block_bytes=5 * 3 * n * 8)
     want = vals[recon].reshape(n_elem, n, 3).transpose(0, 2, 1).astype(
         np.float64)
     if not gradient:
         want = repair_fluid_solid(want, old, solid, list(PARAMS))
         np.testing.assert_array_equal(values[[0, 4, 7]], old[[0, 4, 7]])
-    assert values.dtype == np.float64
+    assert values.dtype == np.float64 and values.flags.owndata
     np.testing.assert_array_equal(values, want)
     np.testing.assert_array_equal(sink.data, want)
-    # every element once, in order
-    assert written[0][0] == 0 and written[-1][1] == n_elem
-    assert all(a[1] == b[0] for a, b in zip(written, written[1:]))
-    if order_by == "first":
-        assert len(written) > 3  # written as the chunks land
-    if order_by == "reversed":
-        assert len(written) == 1  # all after the last chunk
+    # every element once, in order, in blocks of 5 elements
+    assert written == [(s, min(s + 5, n_elem)) for s in range(0, n_elem, 5)]
+    assert len(written) > 2
+
+
+@pytest.mark.parametrize("gradient", [False, True])
+def test_stream_expand_write_counts_slots_and_patched_elements(gradient,
+                                                               monkeypatch):
+    """Under ``MMT_PROFILE``: ``expand.card_slots`` counts every slot
+    expanded where the unique values live, ``expand.patched_elems`` the
+    elements set back to their old values: the 2 fluid ones and the solid
+    ones that share the zero VS (element 4 and its neighbours on that
+    node), none with ``gradient``; the write is timed as ``g2g.expand``
+    and ``g2g.pull_wait``."""
+    n_elem, n, vals, recon, chunks, old, solid = _expand_case("reversed")
+    zero_vs = (vals[recon, 1] == 0).reshape(n_elem, n).any(axis=1)
+    reverted = int((zero_vs & solid).sum())
+    assert zero_vs[4] and reverted > 1
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    tprofile.reset_stages()
+    try:
+        tengine._stream_expand_write(
+            lambda names: np.empty((n_elem, 3, n)), chunks, recon,
+            list(PARAMS), n, old, solid, gradient)
+        counters = tprofile.counter_totals()
+        stages = tprofile.stage_totals()
+    finally:
+        tprofile.reset_stages()
+    assert counters == {"expand.card_slots": n_elem * n,
+                        "expand.patched_elems": 0 if gradient
+                        else 2 + reverted}
+    assert {"g2g.expand", "g2g.pull_wait"} <= set(stages)
+
+
+def test_transfer_arrays_through_a_reversed_stored_operator(tmp_path,
+                                                           monkeypatch):
+    """``transfer_arrays`` with a stored operator whose unique rows and
+    recon are reversed (``testing.reverse_stored_operator``) writes and
+    returns what the operator it was copied from gives, bit for bit: the
+    expansion takes a loaded recon in any order."""
+    src, tgt = _meshes()
+    data = np.stack([tmt.element_nodal_field(src) * (1 + 0.1 * i)
+                     for i in range(3)], axis=1)
+    old = np.random.default_rng(1).uniform(6.0, 9.0, (tgt.nelem, 3,
+                                                       tgt.n_gll))
+    solid = np.arange(tgt.nelem) >= N_FLUID
+
+    def run(stored):
+        sink = np.full(old.shape, np.nan)
+        values = tengine.transfer_arrays(
+            src.points, data, list(PARAMS), tgt.points, old, solid,
+            lambda names: sink, stored_array=stored, device="cpu")
+        np.testing.assert_array_equal(values, sink)
+        return values
+
+    want = run(tmp_path / "a")
+    tmt.reverse_stored_operator(tmp_path / "a", tmp_path / "b")
+    recon = np.load(tmp_path / "b" / "recon.npy")
+    assert recon[0] == recon.max() > 0
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    tprofile.reset_stages()
+    try:
+        np.testing.assert_array_equal(run(tmp_path / "b"), want)
+        stages = tprofile.stage_totals()
+    finally:
+        tprofile.reset_stages()
+    assert "g2g.load_operator" in stages and "operator.build" not in stages
+    np.testing.assert_array_equal(want[:N_FLUID], old[:N_FLUID])
 
 
 # -- the smoke script's file case, both of its branches --------------------
@@ -410,7 +478,7 @@ def test_smoke_file_case_hdf5_branch_equals_the_array_branch(tmp_path,
 # -- stage timers, trace, progress, the facade ----------------------------
 G2G_STAGES = {"g2g.read_source", "g2g.read_target", "g2g.fingerprint",
               "g2g.dedup", "g2g.apply", "g2g.nan_audit", "g2g.stream_write",
-              "g2g.pull_wait"}
+              "g2g.expand", "g2g.pull_wait"}
 # the build's own stages on the pair (75 source elements: the ladder,
 # round 1 on the nearest centroid); no polish, no stored operator.  The
 # target lies inside the source, so round 1 accepts every row and the

@@ -1113,3 +1113,77 @@ def test_transfer_arrays_card_dedup_matches_host_dedup(dev, tmp_path,
     np.testing.assert_array_equal(card.view(np.int64), host.view(np.int64))
     assert ((tmp_path / "card" / "recon.npy").read_bytes()
             == (tmp_path / "host" / "recon.npy").read_bytes())
+
+
+# -- the mesh path's expansion on the card (engine._stream_expand_write) ---
+def test_transfer_arrays_expands_on_the_card_as_the_host(dev, tmp_path,
+                                                         monkeypatch):
+    """``engine.transfer_arrays`` on the card onto the 1M-slot target of
+    ``mesh_new_1m``, 4 elements fluid and one source element's VS zero:
+    the sink and the returned values bit-equal to a host expansion
+    (``vals[recon]``, relayout, f64, ``repair_fluid_solid``) of the same
+    operator's unique values, and again through a stored copy of that
+    operator whose rows and recon are reversed.  Every slot counts as
+    expanded on the card, the reverted elements as patched; ``values``
+    owns its memory, and the warm calls pin no new host memory."""
+    from multimesh_tpu_torch import engine
+    from multimesh_tpu_torch.ops.fluid import repair_fluid_solid
+
+    src = testing.shell_mesh(n_lat=16, n_lon=16, n_rad=16, order=4)
+    tgt = mesh_new_target("mesh_new_1m")
+    E, n = tgt.shape[:2]
+    params = ["VP", "VS", "RHO"]
+    base = testing.element_nodal_field(src)
+    src_data = np.stack([base, 1.1 * base, 1.2 * base], axis=1)
+    centre = tgt[4000].mean(axis=0)
+    src_data[np.argmin(((src.points.mean(axis=1) - centre) ** 2).sum(1)),
+             1] = 0.0
+    fields = np.ascontiguousarray(np.moveaxis(src_data, 1, 0))
+    old = np.random.default_rng(0).uniform(6.0, 9.0, (E, 3, n))
+    solid = np.ones(E, bool)
+    solid[[0, 1, 2, 4321]] = False
+    monkeypatch.setenv("MMT_PROFILE", "1")
+
+    def run(stored):
+        sink = np.full(old.shape, np.nan)
+        utils_profile.reset_stages()
+        values = engine.transfer_arrays(
+            src.points, src_data, params, tgt, old, solid,
+            lambda names: sink, stored_array=stored, device=dev)
+        counters = utils_profile.counter_totals()
+        utils_profile.reset_stages()
+        assert values.flags.owndata
+        return values, sink, counters
+
+    def host_expansion(stored):
+        op = TransferOperator.load(stored, device=dev)
+        vals = op.apply(fields, expand=False).cpu().numpy()
+        full = vals[op.recon.cpu().numpy()].reshape(E, n, 3).transpose(
+            0, 2, 1).astype(np.float64)
+        reverted = int(((full[:, 1] == 0).any(axis=1) & solid).sum())
+        return repair_fluid_solid(full, old, solid, params), reverted
+
+    a, b = tmp_path / "a", tmp_path / "b"
+    values, sink, counters = run(a)
+    want, reverted = host_expansion(a)
+    assert reverted > 0
+    np.testing.assert_array_equal(values.view(np.int64), want.view(np.int64))
+    np.testing.assert_array_equal(sink.view(np.int64), want.view(np.int64))
+    assert counters["expand.card_slots"] == E * n
+    assert counters["expand.patched_elems"] == 4 + reverted
+    pinned = torch.cuda.host_memory_stats()["num_host_alloc"]
+
+    testing.reverse_stored_operator(a, b)
+    values_b, sink_b, counters_b = run(b)
+    want_b, _ = host_expansion(b)
+    assert not np.array_equal(np.load(a / "recon.npy"),
+                              np.load(b / "recon.npy"))
+    np.testing.assert_array_equal(values_b.view(np.int64),
+                                  want_b.view(np.int64))
+    np.testing.assert_array_equal(sink_b.view(np.int64),
+                                  want_b.view(np.int64))
+    np.testing.assert_array_equal(values_b.view(np.int64),
+                                  values.view(np.int64))
+    assert counters_b["expand.patched_elems"] == 4 + reverted
+    run(a)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == pinned

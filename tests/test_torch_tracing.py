@@ -118,6 +118,7 @@ def test_spans_nest_in_the_profiler_trace_as_the_code_nests(monkeypatch):
     assert _inside(ranges, "mmt.locate.round1", "mmt.operator.build")
     assert _inside(ranges, "mmt.locate.rounds23", "mmt.operator.build")
     assert _inside(ranges, "mmt.g2g.pull_wait", "mmt.g2g.stream_write")
+    assert _inside(ranges, "mmt.g2g.expand", "mmt.g2g.stream_write")
     assert _inside(ranges, "mmt.operator.build", "job")
     assert _inside(ranges, "mmt.g2g.fingerprint", "job")
     # the recorder's own totals hold the same stages, every one timed
