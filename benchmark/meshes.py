@@ -11,6 +11,8 @@ Origins:
   (``box_mesh`` without warp, then ``shell_mesh``'s map to Cartesian
   coordinates), canonical node order: flat node ``(i * n + j) * n + k``
   of lattice indices (i, j, k) along (r, theta, phi);
+* ``shell_layer_ids``: ``multimesh_tpu_torch/testing.py:169-171``
+  (``shell_mesh``'s ``layer_id``);
 * ``smooth_field``: ``multimesh_tpu_torch/testing.py:175-225``
   (``smooth_field_torch``, kind "smooth", Earth-scale normalisation);
 * ``shell_targets``: ``bench.py:48-55`` (r, theta, phi uniform in a box
@@ -89,6 +91,17 @@ def shell_lattice(n_lat: int, n_lon: int, n_rad: int, order: int = 4,
         (r * torch.cos(th)).expand(shape),
     ], dim=-1)
     return pts.reshape(n_rad * n_lat * n_lon, n ** 3, 3)
+
+
+def shell_layer_ids(n_lat: int, n_lon: int, n_rad: int,
+                    n_layers: int = 1, device="cpu") -> torch.Tensor:
+    """[n_rad * n_lat * n_lon] int64 layer ids of ``shell_lattice``'s
+    elements: its ``n_rad`` radial bands split into ``n_layers`` groups,
+    1 innermost, as ``testing.shell_mesh(..., n_layers=n_layers)`` writes
+    them into its ``layer`` field."""
+    band = torch.arange(n_rad, dtype=torch.int64, device=device)
+    layer = band * n_layers // n_rad + 1
+    return layer.repeat_interleave(n_lat * n_lon)
 
 
 def smooth_field(points: torch.Tensor, scale: float = R_EARTH):

@@ -1,7 +1,8 @@
 """Share of the rows the engine's dedup grouped on the card, in percent:
 100 x counter ``dedup.card_rows`` / (``dedup.card_rows`` +
-``dedup.host_rows``), the rows the hash-grouping kernel took and the
-rows sent through the host lexsort.
+``dedup.host_rows``), the rows the first-appearance grouping took on the
+card (``ops/dedup.dedup_first``, PyTorch sorts and scans) and the rows
+sent through the host lexsort.
 
 The counters are read from ``utils_profile.counter_totals()``: the
 benchmark's probe zeroed them (``reset_stages()``) when the traced

@@ -1,6 +1,7 @@
-"""Seconds of the engine's host dedup (stage ``g2g.dedup`` of
-``engine.transfer_arrays``, ``ops/dedup.py``) per job of the traced
-stretch."""
+"""Seconds of the engine's dedup (stage ``g2g.dedup`` of
+``engine.transfer_arrays``, ``ops/dedup.unique_points_device``: on the
+card the coordinates' upload, the grouping ``dedup_first`` and the pull
+of ``recon``) per job of the traced stretch."""
 
 
 def read(ctx):

@@ -1,6 +1,6 @@
 """Share of the rows of the ladder's round 1 that it left unaccepted, in
-percent: 100 x counter ``ladder.round1.missed`` (summed on the card) /
-counter ``ladder.round1.rows``.  These rows are all the rescue rounds
+percent: 100 x counter ``ladder.round1.missed`` (the count the ladder
+reads on the host once a chunk) / counter ``ladder.round1.rows``.  These rows are all the rescue rounds
 can help.
 
 The counters are read from ``utils_profile.counter_totals()``: the

@@ -96,12 +96,19 @@ def _newton(order: int, nodes: torch.Tensor, q: torch.Tensor):
 
 
 def locate(lattice: torch.Tensor, targets: torch.Tensor, order: int,
-           block: int = 8192):
+           block: int = 8192, inside_tol: float = INSIDE_TOL,
+           miss: bool = False):
     """(element [S] long, xi [S, 3] f64, found [S] bool) of each target
     [S, 3] in the source ``lattice`` [E, n, 3] (f64, on the device the
     work runs on), ``block`` targets at a time.  ``found`` is False where
     none of the nearest ``CANDIDATES`` elements contains the target;
-    there ``xi`` is the nearest miss, clipped into the element."""
+    there ``xi`` is the nearest miss, clipped into the element.
+
+    ``inside_tol`` (at least ``INSIDE_TOL``) widens containment: where no
+    candidate contains a target at ``INSIDE_TOL``, the first candidate in
+    distance order within ``inside_tol`` of [-1, 1]^3 does, and ``xi`` is
+    clipped into it.  With ``miss``, a fourth tensor [S] f64: how far the
+    chosen candidate's largest |xi| lies past 1 (0 inside)."""
     lattice = lattice.to(torch.float64)
     targets = targets.to(device=lattice.device, dtype=torch.float64)
     centroids = lattice.mean(dim=1)
@@ -112,13 +119,16 @@ def locate(lattice: torch.Tensor, targets: torch.Tensor, order: int,
         torch.cdist(targets[s:s + rows], centroids)
         .topk(k, largest=False).indices
         for s in range(0, targets.shape[0], rows)])
-    elems, xis, founds = [], [], []
+    elems, xis, founds, misses = [], [], [], []
     for s in range(0, targets.shape[0], block):
         c = cand[s:s + block]
         q = targets[s:s + block, None, :].expand(-1, k, -1)
         xi, res = _newton(order, lattice[c], q)
         outside = xi.abs().amax(dim=-1)
         inside = (outside <= 1.0 + INSIDE_TOL) & (res < 1e-9)
+        if inside_tol != INSIDE_TOL:
+            inside |= ((outside <= 1.0 + inside_tol) & (res < 1e-9)
+                       & ~inside.any(dim=1, keepdim=True))
         # first containing candidate in distance order, else the nearest miss
         first = torch.where(inside.any(dim=1),
                             inside.to(torch.int8).argmax(dim=1),
@@ -127,11 +137,15 @@ def locate(lattice: torch.Tensor, targets: torch.Tensor, order: int,
         elems.append(c[r, first])
         xis.append(xi[r, first].clamp(-1.0, 1.0))
         founds.append(inside.any(dim=1))
+        if miss:
+            misses.append((outside[r, first] - 1.0).clamp_min(0.0))
     if not elems:
         empty = torch.zeros((0,), dtype=torch.long, device=lattice.device)
-        return (empty, torch.zeros((0, 3), dtype=torch.float64,
-                                   device=lattice.device), empty.bool())
-    return torch.cat(elems), torch.cat(xis), torch.cat(founds)
+        out = (empty, torch.zeros((0, 3), dtype=torch.float64,
+                                  device=lattice.device), empty.bool())
+        return out + (empty.double(),) if miss else out
+    out = torch.cat(elems), torch.cat(xis), torch.cat(founds)
+    return out + (torch.cat(misses),) if miss else out
 
 
 def interpolate(values: torch.Tensor, element: torch.Tensor,

@@ -1,7 +1,7 @@
 """Peaks of the card and the least time a kernel's work could take.
 
-Frozen copies of ``chip_smoke.py:308-310`` (the peaks), ``:372-382``
-(``bound``), ``:385-394`` (``sumfact_fmas``) and ``:397-408``
+Frozen copies of ``chip_smoke.py:323-325`` (the peaks), ``:407-413``
+(``bound``), ``:420-429`` (``sumfact_fmas``) and ``:432-444``
 (``newton_bound``), on counts instead of tensors.
 """
 from __future__ import annotations

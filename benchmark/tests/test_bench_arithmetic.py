@@ -40,6 +40,33 @@ def test_idle_gaps_go_to_the_innermost_open_span():
         {"bench.job": 1.9, "bench.build": 1.0, "outside spans": 1.0})
 
 
+def test_trace_keeps_the_programs_stages_as_host_spans(monkeypatch):
+    """A profiled stretch on the CPU: the benchmark's ``bench.*`` ranges
+    and the program's ``mmt.*`` stages come out as host spans, nested as
+    they ran, and label the idle gaps; other host ops do not."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from benchmark import profiling
+    from multimesh_tpu_torch import utils_profile
+
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("bench.window"):
+            with record_function("bench.job"):
+                with utils_profile.stage_timer("g2g.dedup"):
+                    torch.ones(64).sum()
+                with record_function("other"):
+                    torch.ones(64).sum()
+    dev, spans = profiling.trace_events(prof)
+    assert dev == []
+    names = [name for _, _, name in sorted(spans)]
+    assert names == ["bench.window", "bench.job", "mmt.g2g.dedup"]
+    (s, e, _), = [sp for sp in spans if sp[2] == "mmt.g2g.dedup"]
+    mid = 0.5 * (s + e)
+    assert timeline.label_gaps([(mid, mid)], spans) == [
+        ("mmt.g2g.dedup", 0.0)]
+
+
 def test_device_time_by_name():
     ev = [("k1", 0.0, 1.0), ("k2", 1.0, 1.5), ("k1", 2.0, 4.0)]
     assert timeline.by_name(ev) == [("k1", 3.0), ("k2", 0.5)]
