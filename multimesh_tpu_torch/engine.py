@@ -466,7 +466,8 @@ def _layered_operators(
     with stage_timer("layered.masks_dedup"):
         src_masks, layer_ids = mesh_layer_masks(original_mesh, layers)
         tgt_masks, _ = mesh_layer_masks(new_mesh, list(layer_ids))
-        uniq = unique_points_per_layer(new_mesh.points, tgt_masks)
+        with stage_timer("layered.dedup"):
+            uniq = unique_points_per_layer(new_mesh.points, tgt_masks)
 
     cache_path = (
         os.path.join(str(stored_array), "interp_info.h5")
@@ -563,6 +564,7 @@ def _layered_apply_and_write(
     parameters: List[str],
 ):
     # all parameters in one device pass per layer, one host pull each
+    count("layered.layers", len(ops))
     with stage_timer("layered.apply_write"):
         new_fields = {
             p: np.array(_nodal_fields(new_mesh)[p], copy=True)
@@ -575,7 +577,9 @@ def _layered_apply_and_write(
                     for p in parameters
                 ]
             )  # [P, E_layer, n]
-            vals = _host(op.apply(src))  # [N_layer, P]
+            with stage_timer("layered.apply"):
+                vals = _host(op.apply(src))  # [N_layer, P]
+            count("layered.slots", vals.shape[0])
             for i, p in enumerate(parameters):
                 tgt = new_fields[p]
                 tgt[tgt_masks[layer]] = vals[:, i].reshape(

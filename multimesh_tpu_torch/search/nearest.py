@@ -14,13 +14,16 @@ candidate fails Newton acceptance, so a swap of two near-tied sources
 costs a rescue round, not accuracy.
 
 ``nearest`` picks by the tensors' device: CPU tensors run the plain
-twin, CUDA tensors launch the kernel, any other device raises.
+twin, CUDA tensors launch the kernel, any other device raises.  Under
+``MMT_PROFILE`` it counts, on either device, its queries (``k2.rows``)
+and the (query, source) pairs it scores (``k2.pairs``), from the shapes.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
+from ..utils_profile import count
 
 _REF_CHUNK = 32_768  # query rows per [rows, E] score block of the twin
 
@@ -65,6 +68,8 @@ def nearest(queries, sources):
             f"{sources.shape[1]}")
     if sources.shape[0] == 0:
         raise ValueError("nearest: no sources")
+    count("k2.rows", C)
+    count("k2.pairs", C * sources.shape[0])
     device = queries.device
     if device.type == "cpu":
         return nearest_centroid_ref(queries, sources)

@@ -343,3 +343,75 @@ def test_the_exodus_path_times_its_location_step_once_a_call(monkeypatch):
     assert first[2] <= apply[1]
     assert tprofile.stage_totals()["e2g.locate"] >= \
         tprofile.stage_totals()["operator.build"] > 0
+
+
+def _layered_pair():
+    """Live source and target meshes of 2 layers (72 source elements a
+    layer: above 64, so round 1 takes K2's nearest centroid)."""
+    import types
+
+    def live(mesh):
+        return types.SimpleNamespace(
+            points=mesh.points,
+            element_nodal_fields={"VP": tmt.smooth_field(mesh.points)},
+            elemental_fields={"fluid": np.zeros(mesh.nelem),
+                              "layer": mesh.layer_id.astype(np.float64)})
+
+    src = tmt.shell_mesh(n_lat=6, n_lon=6, n_rad=4, order=2, n_layers=2)
+    tgt = tmt.shell_mesh(n_lat=3, n_lon=3, n_rad=4, order=2, n_layers=2,
+                         lat_extent=(0.55, 1.15), lon_extent=(0.35, 1.35))
+    return live(src), live(tgt), tgt
+
+
+def test_the_layered_path_nests_its_dedup_and_apply_and_counts_its_work(
+        monkeypatch):
+    """``layered.dedup`` opens inside ``layered.masks_dedup`` and
+    ``layered.apply`` (once a layer) inside ``layered.apply_write``; the
+    call counts the layers it carried, the target slots it wrote, and
+    K2's queries and (query, centroid) pairs, which the calls of
+    ``nearest`` add up to; recording off, nothing is recorded."""
+    from multimesh_tpu_torch.search import nearest as tnearest
+
+    calls = []
+    original = tnearest.nearest
+
+    def spy(queries, sources):
+        calls.append((queries.shape[0], sources.shape[0]))
+        return original(queries, sources)
+
+    monkeypatch.setattr(tnearest, "nearest", spy)
+
+    def call():
+        old, new, tgt = _layered_pair()
+        tengine.gll_2_gll_layered(old, new, layers="all", parameters=["VP"],
+                                  device="cpu")
+        return new.element_nodal_fields["VP"], tgt
+
+    monkeypatch.delenv("MMT_PROFILE", raising=False)
+    tprofile.reset_stages()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        off, _ = call()
+    assert not [r for r in _ranges(prof) if r[0].startswith("mmt.")]
+    assert tprofile.stage_totals() == {} and tprofile.counter_totals() == {}
+    assert calls  # K2 ran, unrecorded
+
+    _on(monkeypatch)
+    calls.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("job"):
+            on, tgt = call()
+    np.testing.assert_array_equal(on, off)
+    ranges = _ranges(prof)
+    assert _inside(ranges, "mmt.layered.dedup", "mmt.layered.masks_dedup")
+    assert _inside(ranges, "mmt.layered.apply", "mmt.layered.apply_write")
+    assert not _inside(ranges, "mmt.layered.dedup", "mmt.layered.build")
+    assert tprofile._REC.calls["layered.dedup"] == 1
+    assert tprofile._REC.calls["layered.apply"] == 2  # one a layer
+    counters = tprofile.counter_totals()
+    assert counters["layered.layers"] == 2
+    assert counters["layered.slots"] == tgt.nelem * tgt.n_gll
+    assert {s for _, s in calls} == {72}  # each layer's centroids
+    assert counters["k2.rows"] == sum(q for q, _ in calls)
+    assert counters["k2.pairs"] == sum(q * s for q, s in calls)
+    # the dedup ran on the host, every target slot through it
+    assert counters["dedup.host_rows"] == tgt.nelem * tgt.n_gll
