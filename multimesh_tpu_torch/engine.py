@@ -467,7 +467,8 @@ def _layered_operators(
         src_masks, layer_ids = mesh_layer_masks(original_mesh, layers)
         tgt_masks, _ = mesh_layer_masks(new_mesh, list(layer_ids))
         with stage_timer("layered.dedup"):
-            uniq = unique_points_per_layer(new_mesh.points, tgt_masks)
+            uniq = unique_points_per_layer(new_mesh.points, tgt_masks,
+                                           device=device)
 
     cache_path = (
         os.path.join(str(stored_array), "interp_info.h5")
@@ -528,8 +529,9 @@ def _layered_operators(
 
     order = original_mesh.shape_order
     with stage_timer("layered.build"):
-        for layer in uniq:
-            pts_u, recon = uniq[layer]
+        for layer in list(uniq):
+            # each layer's unique points go once its operator is built
+            pts_u, recon = uniq.pop(layer)
             ops[layer] = TransferOperator.build(
                 original_mesh.points[src_masks[layer]],
                 pts_u,

@@ -7,9 +7,11 @@ reference's key work-saver (reference multi_mesh/utils.py:465-515).  The
 host numpy of the JAX package's ``ops/dedup.py``, bit for bit; the device
 copy of the unique points is a ``torch.Tensor``.
 
-On a CUDA device the first-appearance dedup runs on the card
-(``dedup_first``, sorts and scans in PyTorch), with the same unique rows,
-in the same order, and the same reconstruction indices as the host path.
+On a CUDA device the dedup runs on the card (``dedup_first`` for the
+mesh path's first-appearance order, ``dedup_sorted`` for the layered
+path's sorted order; sorts and scans in PyTorch), with the same unique
+rows, in the same order, and the same reconstruction indices as the host
+path.
 """
 from __future__ import annotations
 
@@ -68,13 +70,14 @@ def unique_points(
     return unique, recon
 
 
-def dedup_first(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(unique [U, d], recon [N] int64) of ``points`` [N, d] f64 on their
-    device, in first-appearance order, as
-    ``unique_points(order_by="first")``.  Stable sorts by each column,
-    the last first, make rows that compare equal (``==``: -0.0 equals
-    +0.0, a NaN equals nothing) neighbours; a group's unique row is its
-    first row.  Reading U is the one sync."""
+def _sorted_groups(points: torch.Tensor):
+    """(order, group, first) of ``points`` [N, d] f64 on their device:
+    ``order`` sorts the rows lexicographically, ``group`` [N] numbers the
+    sorted rows' groups from 0, ``first`` [U] is each group's first row
+    (its least input index).  Stable sorts by each column, the last first,
+    make rows that compare equal (``==``: -0.0 equals +0.0, a NaN equals
+    nothing) neighbours in ``np.lexsort``'s order.  Reading U is the one
+    sync."""
     n = points.shape[0]
     keys = points + 0.0  # -0.0 + 0.0 is +0.0: one sort key per == class
     order = torch.arange(n, device=points.device)
@@ -87,11 +90,32 @@ def dedup_first(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     n_groups = int(is_new.sum())
     first = torch.full((n_groups,), n, device=points.device).scatter_reduce(
         0, group, order, "amin")
+    return order, group, first
+
+
+def dedup_first(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unique [U, d], recon [N] int64) of ``points`` [N, d] f64 on their
+    device, in first-appearance order, as
+    ``unique_points(order_by="first")``: ``_sorted_groups`` relabelled;
+    a group's unique row is its first row."""
+    order, group, first = _sorted_groups(points)
     first, perm = torch.sort(first)  # new id -> group, by first appearance
     new_id = torch.empty_like(perm)
-    new_id[perm] = torch.arange(n_groups, device=points.device)
-    recon = torch.empty(n, dtype=torch.int64, device=points.device)
+    new_id[perm] = torch.arange(len(perm), device=points.device)
+    recon = torch.empty(len(order), dtype=torch.int64, device=points.device)
     recon[order] = new_id[group]
+    return points[first], recon
+
+
+def dedup_sorted(points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unique [U, d], recon [N] int64) of ``points`` [N, d] f64 on their
+    device, in sorted order, as ``unique_points(order_by="sorted")``:
+    ``_sorted_groups`` without the relabelling; a group's unique row is
+    its first row in the stable sorted order, the row ``np.lexsort``
+    keeps (sign of zero included)."""
+    order, group, first = _sorted_groups(points)
+    recon = torch.empty(len(order), dtype=torch.int64, device=points.device)
+    recon[order] = group
     return points[first], recon
 
 
@@ -166,13 +190,35 @@ def unique_points_device(
 
 
 def unique_points_per_layer(
-    points: np.ndarray, masks: Dict[str, np.ndarray]
-) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
-    """Per-layer dedup: layer -> (unique points, reconstruction indices).
+    points: np.ndarray, masks: Dict[str, np.ndarray], device=None,
+) -> Dict[str, tuple]:
+    """Per-layer dedup: layer -> (unique points, reconstruction indices),
+    each layer's unique rows in sorted order (``interp_info.h5`` stores
+    its coefficients in that order).
 
     ``points`` [E, n, d]; ``masks`` layer -> boolean [E].  Mirrors the
     mesh path of the reference's get_unique_points (utils.py:503-515).
-    """
-    return {
-        layer: unique_points(points[mask]) for layer, mask in masks.items()
-    }
+    On a CUDA ``device`` the card groups each layer's rows
+    (``dedup_sorted``) and both arrays are tensors there: the coordinates
+    are uploaded once and widened to f64 on the card (exact, so the
+    groups are the host path's), the unique rows cast back to the input's
+    dtype.  Otherwise each layer runs the host lexsort (numpy arrays)."""
+    if device is None or torch.device(device).type != "cuda":
+        return {
+            layer: unique_points(points[mask])
+            for layer, mask in masks.items()
+        }
+    pts = np.ascontiguousarray(points)
+    with warnings.catch_warnings():
+        # a frozen lattice: it is only read
+        warnings.filterwarnings("ignore", message=".*not writable")
+        dev_pts = torch.as_tensor(pts, device=device)
+    out = {}
+    for layer, mask in masks.items():
+        elems = torch.as_tensor(np.flatnonzero(mask), device=device)
+        rows = dev_pts.index_select(0, elems).reshape(-1, pts.shape[-1])
+        uniq, recon = dedup_sorted(rows.to(torch.float64))
+        count("dedup.card_rows", len(rows))
+        count("dedup.unique_rows", len(uniq))
+        out[layer] = (uniq.to(dev_pts.dtype), recon)
+    return out

@@ -1,9 +1,9 @@
 """``multimesh_tpu_torch.ops.dedup`` against the JAX package's
 ``ops/dedup.py``: the host dedup is the same numpy, so unique points and
-reconstruction indices agree bit for bit, and so does the grouping the
-card runs (``dedup_first``, PyTorch) with the first-appearance order; the
-caches return the same objects on a hit, hold two entries, and the
-device copy is keyed by its device.
+reconstruction indices agree bit for bit, and so do the groupings the
+card runs (PyTorch): ``dedup_first`` with the first-appearance order,
+``dedup_sorted`` with the sorted one; the caches return the same objects
+on a hit, hold two entries, and the device copy is keyed by its device.
 """
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ from multimesh_tpu.ops import dedup as jdedup  # noqa: E402
 from multimesh_tpu_torch import testing, utils_profile  # noqa: E402
 from multimesh_tpu_torch.hashing import content_fingerprint  # noqa: E402
 from multimesh_tpu_torch.ops import dedup as tdedup  # noqa: E402
+from multimesh_tpu_torch.ops import layers as tlayers  # noqa: E402
 
 
 def _points(kind):
@@ -45,7 +46,8 @@ def _twin(pts):
 
 def _assert_bits_equal(a, b):
     assert a.dtype == b.dtype and a.shape == b.shape
-    np.testing.assert_array_equal(a.view(np.int64), b.view(np.int64))
+    bits = f"i{a.itemsize}"
+    np.testing.assert_array_equal(a.view(bits), b.view(bits))
 
 
 # "first_twin": the card's grouping (``dedup_first``), against the first
@@ -104,6 +106,81 @@ def test_twin_edge_cases_equal_host_bitwise(case):
         assert recon.tolist() == [0, 0, 1, 0, 0]
     if case == "nan":
         assert recon.tolist() == [0, 1, 2, 1, 3, 4]
+
+
+# the input of each case of ``test_sorted_twin_equals_host_bitwise``
+SORTED_CASES = {
+    "f64": lambda: _points("flat_3d"),
+    "f32": lambda: _points("flat_3d").astype(np.float32),
+    "signed_zero": lambda: testing.dedup_edge_points("signed_zero"),
+    "one_row": lambda: testing.dedup_edge_points("one_row"),
+    "all_equal": lambda: testing.dedup_edge_points("all_equal"),
+    "nan": lambda: testing.dedup_edge_points("nan"),
+    "across_elements": lambda: _points("shell_3d").astype(np.float32),
+    "jax": lambda: _points("box_2d"),
+}
+
+
+@pytest.mark.parametrize("case", list(SORTED_CASES))
+def test_sorted_twin_equals_host_bitwise(case):
+    """``dedup_sorted`` on CPU tensors (the layered path's grouping on
+    the card, on the rows widened to f64 as the card branch widens them)
+    against ``unique_points(order_by="sorted")`` on the input as given:
+    unique rows cast back to the input's dtype and recon bit for bit;
+    for "jax" also against the JAX package's ``unique_points``."""
+    pts = SORTED_CASES[case]()
+    flat = pts.reshape(-1, pts.shape[-1])
+    uniq, recon = tdedup.dedup_sorted(
+        torch.as_tensor(flat.astype(np.float64)))
+    uniq = uniq.numpy().astype(pts.dtype)
+    want_u, want_r = tdedup.unique_points(pts, order_by="sorted")
+    _assert_bits_equal(uniq, want_u)
+    np.testing.assert_array_equal(recon.numpy(), want_r)
+    assert recon.dtype == torch.int64
+    if case == "jax":
+        j_uniq, j_recon = jdedup.unique_points(pts, order_by="sorted")
+        _assert_bits_equal(uniq, j_uniq)
+        np.testing.assert_array_equal(recon.numpy(), j_recon)
+    rows = ~np.isnan(flat).any(axis=1)
+    assert (uniq[recon.numpy()][rows] == flat[rows]).all()
+    n_groups = {"signed_zero": 2, "one_row": 1, "all_equal": 1,
+                "nan": 5}.get(case)
+    if n_groups is not None:
+        assert len(uniq) == n_groups
+    if case == "signed_zero":
+        # sorted: (0, 1, 0) before (2, 0, 0); its first row's bits kept,
+        # -0.0 first
+        assert np.signbit(uniq[0]).tolist() == [True, False, False]
+        assert recon.tolist() == [0, 0, 1, 0, 0]
+    if case in ("across_elements", "jax"):
+        assert len(uniq) < len(flat)  # elements share their face nodes
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_per_layer_dedup_off_the_card_takes_the_host_path(monkeypatch,
+                                                          device):
+    """``unique_points_per_layer`` without a device or on the CPU runs
+    the host lexsort on each layer: numpy arrays equal to
+    ``unique_points`` on the layer's elements, counted as host rows."""
+    mesh = jmt.shell_mesh(n_lat=3, n_lon=3, n_rad=4, order=2, n_layers=2)
+    pts = mesh.points.astype(np.float32)
+    masks = tlayers.layer_masks(mesh.layer_id, [2, 1])
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    utils_profile.reset_stages()
+    try:
+        got = tdedup.unique_points_per_layer(pts, masks, device=device)
+        counters = utils_profile.counter_totals()
+    finally:
+        utils_profile.reset_stages()
+    assert list(got) == ["2", "1"]
+    for layer, mask in masks.items():
+        want_u, want_r = tdedup.unique_points(pts[mask])
+        assert isinstance(got[layer][0], np.ndarray)
+        _assert_bits_equal(got[layer][0], want_u)
+        np.testing.assert_array_equal(got[layer][1], want_r)
+    assert counters == {
+        "dedup.host_rows": pts.shape[0] * pts.shape[1],
+        "dedup.unique_rows": sum(len(u) for u, _ in got.values())}
 
 
 def test_device_dedup_on_cpu_takes_the_host_path(monkeypatch):

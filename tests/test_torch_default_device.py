@@ -75,6 +75,22 @@ def devices(monkeypatch):
     return seen
 
 
+@pytest.fixture
+def dedup_devices(monkeypatch):
+    """The devices the layered entries asked ``unique_points_per_layer``
+    for; the host groups the slots here (there is no card), so the call
+    goes on to ``locate``."""
+    seen = []
+    per_layer = dedup.unique_points_per_layer
+
+    def host_dedup(points, masks, device=None):
+        seen.append(device)
+        return per_layer(points, masks)
+
+    monkeypatch.setattr(engine, "unique_points_per_layer", host_dedup)
+    return seen
+
+
 def _meshes():
     src = tmt.shell_mesh(n_lat=3, n_lon=3, n_rad=2, order=2, n_layers=2)
     tgt = tmt.shell_mesh(n_lat=2, n_lon=2, n_rad=2, order=2, n_layers=2,
@@ -158,15 +174,19 @@ ENTRIES = {
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
-def test_entry_without_device_asks_locate_for_the_card(entry, devices):
+def test_entry_without_device_asks_locate_for_the_card(entry, devices,
+                                                       dedup_devices):
     call, unchanged = ENTRIES[entry](*_meshes())
     with pytest.raises(_Located):
         call()
     # one locate call, for the card by locate's rule (None means cuda),
-    # and no other work done: the call stopped there and left its meshes
+    # and no other work done: the call stopped there and left its meshes;
+    # a layered entry's dedup was asked for the card too
     assert len(devices) == 1
-    device = devices[0]
-    assert torch.device("cuda" if device is None else device).type == "cuda"
+    for device in devices + dedup_devices:
+        assert torch.device(
+            "cuda" if device is None else device).type == "cuda"
+    assert bool(dedup_devices) == (entry == "interpolate_to_points_layered")
     assert unchanged()
 
 

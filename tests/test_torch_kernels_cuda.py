@@ -8,6 +8,9 @@ with ``--noconftest``:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import sys
+import types
+
 import numpy as np
 import pytest
 
@@ -1187,3 +1190,143 @@ def test_transfer_arrays_expands_on_the_card_as_the_host(dev, tmp_path,
     assert counters_b["expand.patched_elems"] == 4 + reverted
     run(a)
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == pinned
+
+
+# -- the layered path's dedup on the card (ops/dedup.dedup_sorted) ---------
+def _layered_pair():
+    """A small 4-layer order-4 shell pair: the target inside the source,
+    their layer interfaces on the same radii."""
+    src = testing.shell_mesh(n_lat=5, n_lon=5, n_rad=8, order=4, n_layers=4)
+    tgt = testing.shell_mesh(n_lat=4, n_lon=4, n_rad=8, order=4, n_layers=4,
+                             lat_extent=(0.55, 1.15),
+                             lon_extent=(0.35, 1.35))
+    return src, tgt
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_layered_dedup_on_card_matches_host_bitwise(dev, dtype,
+                                                    monkeypatch):
+    """``unique_points_per_layer`` on the card (``dedup_sorted`` on each
+    layer's rows) against the host lexsort on the same layer: unique rows
+    (tensors on the card in the input's dtype) and recon (int64 on the
+    card) bit for bit, every row counted as grouped on the card."""
+    from multimesh_tpu_torch.ops import layers as tlayers
+
+    _, tgt = _layered_pair()
+    pts = tgt.points.astype(dtype)
+    masks = tlayers.layer_masks(tgt.layer_id, [4, 3, 2, 1])
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    utils_profile.reset_stages()
+    got = tdedup.unique_points_per_layer(pts, masks, device=dev)
+    counters = {k: v for k, v in utils_profile.counter_totals().items()
+                if k.startswith("dedup.")}
+    utils_profile.reset_stages()
+    assert list(got) == list(masks)
+    n_unique = 0
+    for layer, mask in masks.items():
+        want_u, want_r = tdedup.unique_points(pts[mask])
+        uniq, recon = got[layer]
+        assert uniq.device.type == recon.device.type == "cuda"
+        assert recon.dtype == torch.int64
+        got_u = uniq.cpu().numpy()
+        assert got_u.dtype == want_u.dtype and got_u.shape == want_u.shape
+        bits = f"i{got_u.itemsize}"
+        np.testing.assert_array_equal(got_u.view(bits), want_u.view(bits))
+        np.testing.assert_array_equal(recon.cpu().numpy(), want_r)
+        n_unique += len(want_u)
+    assert counters == {"dedup.card_rows": pts.shape[0] * pts.shape[1],
+                        "dedup.unique_rows": n_unique}
+
+
+def _live_layered(mesh, field_kind):
+    """A live mesh object, as a salvus user holds it, for the layered
+    entries."""
+    nodal, elemental = testing.salvus_fixture_fields(
+        mesh, ("VP", "VS"), field_kind=field_kind)
+    return types.SimpleNamespace(points=mesh.points,
+                                 element_nodal_fields=dict(nodal),
+                                 elemental_fields=elemental)
+
+
+def _layered_run(device, stored=None):
+    """``engine.gll_2_gll_layered`` of ``_layered_pair`` onto a fresh
+    target on ``device``: the written (VP, VS)."""
+    from multimesh_tpu_torch import engine
+
+    src, tgt = _layered_pair()
+    new = _live_layered(tgt, "linear")
+    engine.gll_2_gll_layered(_live_layered(src, "smooth"), new,
+                             layers="all", parameters=["VP", "VS"],
+                             stored_array=stored, device=device)
+    return np.stack([new.element_nodal_fields[p] for p in ("VP", "VS")])
+
+
+def test_layered_on_card_matches_cpu(dev, monkeypatch):
+    """``engine.gll_2_gll_layered`` on the card, which groups each
+    layer's slots there, against ``device="cpu"``, which runs the host
+    lexsort: within the file path's f32 tolerance."""
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    utils_profile.reset_stages()
+    got = _layered_run(dev)
+    counters = utils_profile.counter_totals()
+    utils_profile.reset_stages()
+    _, tgt = _layered_pair()
+    assert counters["dedup.card_rows"] == tgt.nelem * tgt.n_gll
+    assert "dedup.host_rows" not in counters
+    want = _layered_run("cpu")
+    rel = np.max(np.abs(got - want) / np.abs(want))
+    assert rel <= _FILE_TOL["f32"], rel
+
+
+class _MemH5:
+    """A stand-in for ``h5py`` (the card's machine has none) that keeps
+    each file's datasets and attributes in memory and leaves an empty
+    file on disk: all that ``interp_info.h5`` needs of it."""
+
+    class _File(dict):
+        def __init__(self):
+            super().__init__()
+            self.attrs = {}
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def create_dataset(self, name, data):
+            self[name] = np.array(data)
+
+    def __init__(self):
+        self.files = {}
+
+    def File(self, path, mode="r"):
+        if mode == "w":
+            open(path, "wb").close()
+            self.files[str(path)] = self._File()
+        return self.files[str(path)]
+
+
+def test_layered_cache_from_the_host_is_served_on_card(dev, tmp_path,
+                                                       monkeypatch):
+    """An ``interp_info.h5`` written by the host path (its coefficients
+    in the host lexsort's unique-row order) is served to the card path,
+    whose recon comes from the card's grouping: with the stored
+    coefficients doubled, the card writes twice the host's values."""
+    h5 = _MemH5()
+    monkeypatch.setitem(sys.modules, "h5py", h5)
+    want = _layered_run("cpu", stored=tmp_path)
+    (store,) = h5.files.values()
+    layers = [k.split("/")[1] for k in store if k.startswith("coeffs/")]
+    assert sorted(layers) == ["1", "2", "3", "4"]
+    for layer in layers:
+        store[f"coeffs/{layer}"] = 2.0 * store[f"coeffs/{layer}"]
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    utils_profile.reset_stages()
+    got = _layered_run(dev, stored=tmp_path)
+    counters = utils_profile.counter_totals()
+    stages = utils_profile.stage_totals()
+    utils_profile.reset_stages()
+    assert counters["dedup.card_rows"] > 0
+    assert "layered.build" not in stages  # served, not rebuilt
+    np.testing.assert_allclose(got, 2.0 * want, rtol=_FILE_TOL["f32"])
