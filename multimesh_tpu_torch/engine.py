@@ -1022,9 +1022,11 @@ def interpolate_to_points(
         prefilter_m=PREFILTER_M,
         device=device,
     )
-    if op.num_missing:
+    num_missing = op.num_missing
+    count("points.sentinel_rows", num_missing)
+    if num_missing:
         print(
-            f"{op.num_missing} points could not find an enclosing element. "
+            f"{num_missing} points could not find an enclosing element. "
             "These points will be set to zero. Please check your domain or "
             "the interpolation tuning parameters"
         )
@@ -1102,17 +1104,21 @@ def extract_regular_grid(
     (reference interpolator.py:1600-1646; implemented natively instead of
     delegating to salvus.mesh utilities)."""
     mesh = _as_salvus(mesh)
-    lat = np.linspace(lat_extent[0], lat_extent[1], int(lat_extent[2]))
-    lon = np.linspace(lon_extent[0], lon_extent[1], int(lon_extent[2]))
-    depth = np.linspace(depth_extent[0], depth_extent[1],
-                        int(depth_extent[2]))
-    ds = utils.create_dataset_grid(lat=lat, lon=lon, depth=depth)
+    with stage_timer("regular.make_points"):
+        lat = np.linspace(lat_extent[0], lat_extent[1], int(lat_extent[2]))
+        lon = np.linspace(lon_extent[0], lon_extent[1], int(lon_extent[2]))
+        depth = np.linspace(depth_extent[0], depth_extent[1],
+                            int(depth_extent[2]))
+        ds = utils.create_dataset_grid(lat=lat, lon=lon, depth=depth)
 
-    dd, la, lo = np.meshgrid(depth, lat, lon, indexing="ij")
-    lld = np.stack([la.ravel(), lo.ravel(), dd.ravel()], axis=-1)
-    points = utils.latlondepth_to_xyz(lld)
-    vals = _host(interpolate_to_points(mesh, points, parameters,
-                                       device=device))
-    for i, p in enumerate(parameters):
-        ds.data[p] = vals[:, i].reshape(len(depth), len(lat), len(lon))
+        dd, la, lo = np.meshgrid(depth, lat, lon, indexing="ij")
+        lld = np.stack([la.ravel(), lo.ravel(), dd.ravel()], axis=-1)
+        points = utils.latlondepth_to_xyz(lld)
+    count("regular.points", points.shape[0])
+    vals = interpolate_to_points(mesh, points, parameters, device=device)
+    with stage_timer("regular.pull"):
+        vals = _host(vals)
+    with stage_timer("regular.assemble"):
+        for i, p in enumerate(parameters):
+            ds.data[p] = vals[:, i].reshape(len(depth), len(lat), len(lon))
     return ds

@@ -661,6 +661,7 @@ def _locate_ladder(points, prep, evaluate, cfg, fallback, chunk, k_full,
     # fallback on an interior point.
     out = (elements, refs, found, accepted)
     n_retry = int(retry.shape[0])
+    count("ladder.retry.rows", n_retry)
     with stage_timer("locate.retry"), _progress(
             n_retry, "locate retry", n_steps=-(-n_retry // chunk)) as rbar:
         _rescan(retry, points, out, prep, evaluate, cfg, fallback, chunk,

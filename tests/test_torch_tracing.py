@@ -415,3 +415,73 @@ def test_the_layered_path_nests_its_dedup_and_apply_and_counts_its_work(
     assert counters["k2.pairs"] == sum(q * s for q, s in calls)
     # the dedup ran on the host, every target slot through it
     assert counters["dedup.host_rows"] == tgt.nelem * tgt.n_gll
+
+
+def _grid_call(mesh):
+    """``extract_regular_grid`` of the fixture's shell onto an 8^3 grid
+    that overhangs it on every side; returns (dataset, the operator the
+    call built)."""
+    import types
+
+    from multimesh_tpu_torch import TransferOperator
+
+    built = []
+    original = TransferOperator.__dict__["build"]
+
+    def build(cls, *args, **kwargs):
+        built.append(original.__func__(cls, *args, **kwargs))
+        return built[-1]
+
+    live = types.SimpleNamespace(
+        points=mesh.points,
+        element_nodal_fields={"VP": tmt.smooth_field(mesh.points)})
+    TransferOperator.build = classmethod(build)
+    try:
+        ds = tengine.extract_regular_grid(
+            live, ["VP"], (15.0, 68.0, 8), (10.0, 88.0, 8), (-1e5, 3e6, 8),
+            device="cpu")
+    finally:
+        TransferOperator.build = original
+    (op,) = built
+    return ds, op
+
+
+def test_the_regular_grid_opens_its_host_spans_and_counts_its_rows(
+        mesh, monkeypatch):
+    """``regular.make_points``, ``regular.pull`` and ``regular.assemble``
+    open once a call, apart from one another and from the build; the
+    call counts its grid points, the sentinel rows (``op.num_missing``)
+    and the rows of the scan retry (``op.n_retry``); recording off,
+    nothing is recorded and the dataset is the same."""
+    monkeypatch.delenv("MMT_PROFILE", raising=False)
+    tprofile.reset_stages()
+    off, _ = _grid_call(mesh)
+    assert tprofile.stage_totals() == {} and tprofile.counter_totals() == {}
+
+    _on(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("job"):
+            ds, op = _grid_call(mesh)
+    np.testing.assert_array_equal(ds["VP"], off["VP"])
+    ranges = _ranges(prof)
+    spans = ("mmt.regular.make_points", "mmt.regular.pull",
+             "mmt.regular.assemble")
+    for span in spans:
+        assert _inside(ranges, span, "job")
+        assert not _inside(ranges, span, "mmt.operator.build",
+                           *(s for s in spans if s != span))
+        assert tprofile._REC.calls[span[4:]] == 1
+    counters = tprofile.counter_totals()
+    assert counters["regular.points"] == 8**3 == op.n_points
+    assert 0 < counters["points.sentinel_rows"] == op.num_missing < 8**3
+    assert 0 < counters["ladder.retry.rows"] == op.n_retry
+    assert (ds["VP"].ravel()[op.elements.numpy() < 0] == 0).all()
+
+
+def test_a_point_cloud_inside_the_source_retries_no_row(mesh, monkeypatch):
+    _on(monkeypatch)
+    nodes = mesh.points.reshape(-1, 3)[::7]  # every row in an element
+    res = tlocate.locate(nodes, mesh.points, 4, CFG, fallback="sentinel",
+                         device="cpu")
+    assert res.n_retry == 0 and bool(res.found.all())
+    assert tprofile.counter_totals()["ladder.retry.rows"] == 0
