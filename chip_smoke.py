@@ -50,7 +50,13 @@ each on stdout:
    (9,925,250 slots): unique rows and recon bit for bit the host path's
    ``unique_points(order_by="first")``; its ms, the wrapper's
    (``unique_points_device``: upload, grouping, recon pulled) and the
-   host path's; then the file path: ``api.gll_2_gll`` file to
+   host path's; then KF (``phase_fingerprint``, the content
+   fingerprint's weighted-sum kernel) at the ``mesh_new_1m`` and
+   ``mesh_new_10m`` cells' targets: its four sums, twice, bit for bit
+   its plain twin's and the host's numpy layer 1,
+   ``content_fingerprint_device`` equal to ``content_fingerprint``, the
+   kernel's time, its twin's, its bound and the two fingerprints' walls;
+   then the file path: ``api.gll_2_gll`` file to
    file at the ``gll_file``
    configuration -- the same source with VP, VS, RHO and z_node_1D onto
    an order-4 shell target of 79,402 elements (9,925,250 GLL slots,
@@ -64,6 +70,9 @@ each on stdout:
    rows grouped on the card (counter ``dedup.card_rows``) in the
    profiled first call, not in the warm one, nor in the stored hit with
    the dedup's caches emptied (it reads ``recon.npy``; profiled too);
+   KF launched in the first and the df32 call, and in the profiled first
+   call every head byte of the target and the (writable) source summed
+   on the card, once, none on the host (``fingerprint.*`` counters);
    the result expanded on the card (counter ``expand.card_slots``, every
    slot, in the profiled calls; span ``g2g.expand`` inside
    ``g2g.stream_write``, both reported) and the warm call pinning no new
@@ -188,7 +197,8 @@ each on stdout:
 
 Then a ``{"kernels": [...]}`` line (per kernel its time, its plain
 twin's, its bound -- see ``bound`` -- and its launches in the df32
-slice's run, as ``launches_file`` in the file path's df32 call, as
+slice's run, as ``launches_file`` in the file path's df32 call (KF's
+there alone, its time at the ``mesh_new_10m`` target), as
 ``launches_big`` in the grid route's df32 run, and as ``launches_exodus``,
 ``launches_exodus_gll``, ``launches_layered`` (its df32 call),
 ``launches_points`` and ``launches_grid2d`` in phases 11-14,
@@ -329,7 +339,7 @@ PORT_KERNELS = ("newton_rows_kernel", "group_count_kernel",
                 "group_scan_tiles_kernel", "group_scan_kernel",
                 "group_scatter_kernel",
                 "nearest_centroid_kernel", "polish_pairs_kernel",
-                "apply_pairs_kernel")
+                "apply_pairs_kernel", "content_sums_kernel")
 # phase_dedup: the mesh_new_1m cell's target (its rotation drawn from the
 # cell's +-0.05 rad)
 DEDUP_MESH_NEW = dict(n_lat=20, n_lon=20, n_rad=20, order=4, r_inner=3.7e6,
@@ -354,6 +364,7 @@ def reset_launches():
     nearest.nearest.launches = 0
     polish.polish_pairs.launches = 0
     polish.apply_pairs.launches = 0
+    hashing.layer1_sums.launches = 0
 
 
 def read_launches():
@@ -361,7 +372,8 @@ def read_launches():
             "newton_rows_order1": newton.newton_rows.launches_order1,
             "nearest_centroid": nearest.nearest.launches,
             "polish_pairs": polish.polish_pairs.launches,
-            "apply_pairs": polish.apply_pairs.launches}
+            "apply_pairs": polish.apply_pairs.launches,
+            "content_sums": hashing.layer1_sums.launches}
 
 
 def card_rows():
@@ -1295,6 +1307,76 @@ def phase_dedup(dev, smi, targets):
     emit({"phase": "dedup", "nvidia_smi": smi, "targets": out})
 
 
+def phase_fingerprint(dev, smi, targets):
+    """KF at each of ``targets`` (name -> host array); see the module
+    docstring.  Returns its kernels-line entry, timed at the last."""
+    C = hashing.HASH_COLS
+    out = {}
+    for name, a in targets.items():
+        b8 = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        R = b8.size // 4 // C
+        head = b8[: 4 * R * C].view(np.uint32).reshape(R, C)
+        t0 = time.perf_counter()
+        col, row, colw, roww = hashing.layer1_sums_host(head)
+        host_sums_ms = (time.perf_counter() - t0) * 1e3
+        want = np.concatenate([col, colw, row, roww])
+        words = torch.from_numpy(head.view(np.int32)).to(dev)
+        for _ in range(2):
+            sums = hashing.layer1_sums(words)
+            check(np.array_equal(sums.cpu().numpy().view(np.uint32), want),
+                  f"KF's sums differ from the host's at {name}")
+        check(np.array_equal(
+            hashing.layer1_sums_ref(words).cpu().numpy().view(np.uint32),
+            want), f"KF's twin differs from the host's at {name}")
+        ms = cuda_ms(lambda: hashing.layer1_sums(words), 20)
+        plain_ms = cuda_ms(lambda: hashing.layer1_sums_ref(words), 3)
+        # the words read once, the four sums written once; its four
+        # integer operations a word take far less than the bytes' time
+        bound_ms, bound_by = nbytes(words, sums) / PEAK_BYTES * 1e3, "bytes"
+        del words, sums
+        want_fp = hashing.content_fingerprint(a)
+        walls = {"card": [], "host": []}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fp, up = hashing.content_fingerprint_device(a, dev)
+            torch.cuda.synchronize()
+            walls["card"].append((time.perf_counter() - t0) * 1e3)
+            check(fp == want_fp, f"content_fingerprint_device differs from "
+                  f"content_fingerprint at {name}")
+            check(np.array_equal(up.cpu().numpy().view(np.uint8).reshape(-1),
+                                 b8), f"the fingerprint's upload at {name}")
+            del up
+            t0 = time.perf_counter()
+            hashing.content_fingerprint(a)
+            walls["host"].append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"rows": R, "bytes": 4 * R * C, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_share": bound_ms / ms,
+                     "host_sums_ms": host_sums_ms,
+                     "fingerprint_card_ms": walls["card"],
+                     "fingerprint_host_ms": walls["host"]}
+    emit({"phase": "fingerprint", "nvidia_smi": smi, "targets": out})
+    last = out[name]
+    return {"name": "content_sums", "route": "cuda",
+            "source": "multimesh_tpu_torch/csrc/content_sums.cu",
+            # both packages sum the weighted-sum layer on the host
+            "replaces": None, "max_abs_err": 0, "target": name,
+            **{k: last[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            # numpy's wrapping uint32 sums; no PyTorch call takes them
+            "library_ms": None}
+
+
+def mesh_new_target(points):
+    """``points`` [E, n, 3] rotated about the polar axis by
+    ``DEDUP_ANGLE``, as a mesh cell's target."""
+    c, s_ = np.cos(DEDUP_ANGLE), np.sin(DEDUP_ANGLE)
+    return np.stack([c * points[..., 0] - s_ * points[..., 1],
+                     s_ * points[..., 0] + c * points[..., 1],
+                     points[..., 2]], axis=-1)
+
+
 def file_target():
     """The ``gll_file`` target: an order-4 shell of 37 x 37 x 58 = 79,402
     elements (9,925,250 GLL slots) strictly inside the source."""
@@ -1420,8 +1502,9 @@ def phase_file(case, smi):
     del vals_a
     rel_a = rel_errs(wr_a)
     check(max(rel_a) < 1e-6, f"file path max rel errs {rel_a} >= 1e-6")
-    check(launches_a["newton_rows"] > 0 and launches_a["nearest_centroid"]
-          > 0, f"a kernel of the file path was not launched: {launches_a}")
+    check(all(launches_a[k] > 0 for k in ("newton_rows", "nearest_centroid",
+                                          "content_sums")),
+          f"a kernel of the file path was not launched: {launches_a}")
 
     # (b) warm: the same call again, the in-process caches filled; its
     # pinned staging buffer taken from the caching host allocator
@@ -1485,7 +1568,8 @@ def phase_file(case, smi):
     rel_d = rel_errs(wr_d)
     check(max(rel_d) < 1e-8, f"df32 file path max rel errs {rel_d} >= 1e-8")
     check(all(launches_d[k] > 0 for k in ("newton_rows", "nearest_centroid",
-                                          "polish_pairs", "apply_pairs")),
+                                          "polish_pairs", "apply_pairs",
+                                          "content_sums")),
           f"a kernel of the df32 file path was not launched: {launches_d}")
     check(np.array_equal(mem, wr_d), "the df32 file's values differ from "
           "the in-memory polished operator's")
@@ -1518,6 +1602,8 @@ def phase_file(case, smi):
         stages = utils_profile.stage_totals()
         grouped["first"] = card_rows()
         expanded = {"first": expand_counts()}
+        hashed = {k: v for k, v in utils_profile.counter_totals().items()
+                  if k.startswith("fingerprint.")}
         utils_profile.reset_stages()
         wall_prof_warm = case.run()[3]
         stages_warm = utils_profile.stage_totals()
@@ -1528,6 +1614,12 @@ def phase_file(case, smi):
     check(grouped["first"] == n_slots, f"the first call grouped "
           f"{grouped['first']} rows on the card, not its {n_slots} slots")
     check(grouped["warm"] == 0, "the warm call grouped its target again")
+    row = 4 * hashing.HASH_COLS
+    heads = sum(a.nbytes // row * row for a in (src.points, tgt.points))
+    check(hashed == {"fingerprint.card_bytes": heads,
+                     "fingerprint.frozen_hits": 0},
+          f"the first call's fingerprint counters {hashed}: not every head "
+          f"byte ({heads}) of the target and the source on the card, once")
     # every slot expanded on the card; no element reverted (the target
     # has no fluid and no zero VS: the values equal the in-memory
     # operator's, which knows no repair)
@@ -1561,7 +1653,8 @@ def phase_file(case, smi):
           "k5_file_max_rel_diff": k5_rel, "num_missing": num_missing,
           "n_retry": n_retry, "launches_first": launches_a,
           "launches_warm": launches_b, "launches_stored_hit": launches_c,
-          "launches_df32": launches_d, "dedup_card_rows": grouped})
+          "launches_df32": launches_d, "dedup_card_rows": grouped,
+          "fingerprint_counters_first": hashed})
     return launches_d, max(k5_rel)
 
 
@@ -3450,12 +3543,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmpdir:
         # one GLL target for the file path and for Exodus -> GLL
         tgt = file_target()
-        mesh_new = testing.shell_mesh(**DEDUP_MESH_NEW).points
-        c, s_ = np.cos(DEDUP_ANGLE), np.sin(DEDUP_ANGLE)
-        mesh_new = np.stack([c * mesh_new[..., 0] - s_ * mesh_new[..., 1],
-                             s_ * mesh_new[..., 0] + c * mesh_new[..., 1],
-                             mesh_new[..., 2]], axis=-1)
+        mesh_new = mesh_new_target(testing.shell_mesh(**DEDUP_MESH_NEW).points)
         phase_dedup(dev, smi, {"mesh_new_1m": mesh_new, "file": tgt.points})
+        kf = phase_fingerprint(dev, smi, {
+            "mesh_new_1m": mesh_new,
+            "mesh_new_10m": mesh_new_target(tgt.points)})
         del mesh_new
         launches_file, k5["max_rel_diff_file"] = phase_file(
             FileCase(src, tgt, tmpdir, dev), smi)
@@ -3518,8 +3610,10 @@ def main():
                                            "bound_ms", "bound_by")}
             for tag, rec in orders.items()}
     k1["launches_order1"] = order1
+    kf["launches_file"] = launches_file["content_sums"]
+    kf["bound_share"] = kf["bound_ms"] / kf["ms"]
     print(smi, flush=True)
-    emit({"kernels": [k1, k2, k4, k5]})
+    emit({"kernels": [k1, k2, k4, k5, kf]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -51,6 +51,8 @@ _SIGNATURES = {
     # stream
     "mmt_apply_pairs": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                         _P, _P),
+    # words, R, band, out, stream
+    "mmt_content_sums": (_P, _I64, _I64, _P, _P),
 }
 
 _library = None

@@ -33,7 +33,12 @@ import torch
 
 from . import utils
 from .config import DEFAULT_LOCATE, PREFILTER_M, LocateConfig
-from .hashing import combine_fingerprints, content_fingerprint
+from .hashing import (
+    array_fingerprint_hit,
+    combine_fingerprints,
+    content_fingerprint,
+    content_fingerprint_device,
+)
 from .ops import (
     TransferOperator,
     map_to_sphere,
@@ -262,13 +267,23 @@ def transfer_arrays(
     # operator cache.  Keying the operator on the raw target coordinates
     # (not the deduplicated points) is what lets a cache hit skip the
     # dedup entirely: the operator is saved WITH its reconstruction
-    # indices (recon.npy).
+    # indices (recon.npy).  On the card the target's bytes are summed
+    # where the dedup takes them (``tgt_dev``); a frozen source is hashed
+    # once, and a writable one once a call: it is frozen for the call in
+    # a view, whose fingerprint locate's mesh prep finds in the identity
+    # cache.
     with stage_timer("g2g.fingerprint"):
-        fp_tgt = content_fingerprint(new_points)
-        fp = combine_fingerprints(content_fingerprint(src_points), fp_tgt)
+        fp_tgt, tgt_dev = content_fingerprint_device(new_points, device)
+        if src_points.flags.writeable:
+            src_points = src_points.view()
+            src_points.setflags(write=False)
+        fp_src, hit = array_fingerprint_hit(src_points, device)
+        count("fingerprint.frozen_hits", int(hit))
+        fp = combine_fingerprints(fp_src, fp_tgt)
 
     op = None
     if stored_array and TransferOperator.exists(stored_array):
+        tgt_dev = None  # a hit skips the dedup; a miss uploads again
         with stage_timer("g2g.load_operator"):
             try:
                 op = TransferOperator.load(stored_array, fingerprint=fp,
@@ -286,8 +301,10 @@ def transfer_arrays(
             # first-appearance unique ordering, the JAX package's: a
             # stored operator's rows and recon.npy pass between the two
             uniq, recon = unique_points_device(
-                new_points, fp_tgt, order_by="first", device=device
+                new_points, fp_tgt, order_by="first", device=device,
+                uploaded=tgt_dev,
             )
+            tgt_dev = None
         op = TransferOperator.build(
             src_points,
             uniq,

@@ -152,30 +152,37 @@ _UNIQ_DEV_CACHE: dict = {}  # (fingerprint, order_by, device) -> (unique, recon)
 
 def unique_points_device(
     points: np.ndarray, fingerprint: int, order_by: str = "first",
-    device="cuda",
+    device="cuda", uploaded: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, np.ndarray]:
     """(unique points as a tensor on ``device``, recon on the host) of
     ``points`` [E, n, d] or [N, d], content-cached: repeat transfers onto
     one target reuse both (two entries, as the host cache).
 
     On a CUDA device with ``order_by="first"`` the card groups the rows
-    (``dedup_first``): the coordinates are uploaded once as f64 (exact
-    for f32 ones, so the groups are the host path's), the unique points
-    stay there and recon is copied back.  Otherwise the host path
-    runs (``unique_points_cached``) and the unique points are uploaded."""
+    (``dedup_first``) in f64 (exact for f32 coordinates, so the groups
+    are the host path's): ``uploaded``, ``points`` already on the card
+    as ``hashing.content_fingerprint_device`` leaves them, is widened
+    there; without it the coordinates are uploaded once as f64.  The
+    unique points stay on the card and recon is copied back.  Otherwise
+    the host path runs (``unique_points_cached``) and the unique points
+    are uploaded."""
     device = torch.device(device)
     key = (fingerprint, order_by, str(device))
     hit = _UNIQ_DEV_CACHE.get(key)
     if hit is None:
         if device.type == "cuda" and order_by == "first":
-            pts = np.asarray(points)
-            # f64 (exact for f32 coordinates): the host path's groups
-            flat = np.ascontiguousarray(pts.reshape(-1, pts.shape[-1]),
-                                        dtype=np.float64)
-            with warnings.catch_warnings():
-                # a frozen lattice: it is only read
-                warnings.filterwarnings("ignore", message=".*not writable")
-                flat = torch.as_tensor(flat, device=device)
+            if uploaded is None:
+                pts = np.asarray(points)
+                flat = np.ascontiguousarray(pts.reshape(-1, pts.shape[-1]),
+                                            dtype=np.float64)
+                with warnings.catch_warnings():
+                    # a frozen lattice: it is only read
+                    warnings.filterwarnings("ignore",
+                                            message=".*not writable")
+                    flat = torch.as_tensor(flat, device=device)
+            else:
+                flat = uploaded.reshape(-1, uploaded.shape[-1]).to(
+                    torch.float64)
             uniq, recon = dedup_first(flat)
             count("dedup.card_rows", len(flat))
             count("dedup.unique_rows", len(uniq))

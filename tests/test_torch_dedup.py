@@ -190,10 +190,10 @@ def test_device_dedup_on_cpu_takes_the_host_path(monkeypatch):
     monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
     monkeypatch.setenv("MMT_PROFILE", "1")
     pts = _points("box_2d")
+    fp = content_fingerprint(pts)  # counts fingerprint.host_bytes
     utils_profile.reset_stages()
     try:
-        dev, recon = tdedup.unique_points_device(
-            pts, content_fingerprint(pts), device="cpu")
+        dev, recon = tdedup.unique_points_device(pts, fp, device="cpu")
         counters = utils_profile.counter_totals()
     finally:
         utils_profile.reset_stages()

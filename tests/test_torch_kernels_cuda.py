@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from multimesh_tpu_torch import TransferOperator, _build, testing  # noqa: E402
+from multimesh_tpu_torch import hashing  # noqa: E402
 from multimesh_tpu_torch import utils_profile  # noqa: E402
 from multimesh_tpu_torch.config import LocateConfig  # noqa: E402
 from multimesh_tpu_torch.core import shape  # noqa: E402
@@ -1099,7 +1100,8 @@ def test_transfer_arrays_card_dedup_matches_host_dedup(dev, tmp_path,
             device=dev)
         return sink
 
-    def host_dedup(points, fingerprint, order_by="first", device="cuda"):
+    def host_dedup(points, fingerprint, order_by="first", device="cuda",
+                   uploaded=None):
         uniq, recon = tdedup.unique_points(points, order_by=order_by)
         return torch.as_tensor(uniq, device=device), recon
 
@@ -1330,3 +1332,185 @@ def test_layered_cache_from_the_host_is_served_on_card(dev, tmp_path,
     assert counters["dedup.card_rows"] > 0
     assert "layered.build" not in stages  # served, not rebuilt
     np.testing.assert_allclose(got, 2.0 * want, rtol=_FILE_TOL["f32"])
+
+
+# -- the content fingerprint's weighted-sum layer on the card --------------
+def _hash_input(case):
+    """Arrays the card's fingerprint takes: the two mesh targets of the
+    benchmark (f64 [E, 125, 3]), odd sizes of words and tails, f32."""
+    rng = np.random.default_rng(11)
+    C = hashing.HASH_COLS
+    if case in MESH_NEW:
+        return mesh_new_target(case)
+    return {
+        "under_a_row": lambda: rng.integers(0, 256, 4 * C - 5, np.uint8),
+        "one_row": lambda: rng.integers(0, 256, 4 * C, np.uint8),
+        "r257_leftover_and_tail": lambda: rng.integers(
+            0, 256, 4 * (257 * C + 3) + 1, np.uint8),
+        "r513_f32": lambda: rng.normal(size=513 * C + 5).astype(np.float32),
+    }[case]()
+
+
+@pytest.mark.parametrize("case", ["under_a_row", "one_row",
+                                  "r257_leftover_and_tail", "r513_f32",
+                                  *MESH_NEW])
+def test_content_sums_kernel_matches_twin_and_host(dev, case, monkeypatch):
+    """``content_fingerprint_device`` on the card returns
+    ``content_fingerprint``'s value and the array's upload, bit for bit;
+    its kernel's four sums equal the plain twin's and the host's numpy
+    layer 1 on every row, twice (the atomics' order moves, the sums do
+    not); under a row nothing launches and the host sums the words."""
+    a = _hash_input(case)
+    C = hashing.HASH_COLS
+    R = a.nbytes // 4 // C
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    utils_profile.reset_stages()
+    before = hashing.layer1_sums.launches
+    fp, up = hashing.content_fingerprint_device(a, dev)
+    counters = utils_profile.counter_totals()
+    utils_profile.reset_stages()
+    assert fp == hashing.content_fingerprint(a)
+    assert up.device.type == "cuda" and up.shape == a.shape
+    np.testing.assert_array_equal(up.cpu().numpy().view(np.uint8),
+                                  a.view(np.uint8))
+    assert hashing.layer1_sums.launches == before + (R > 0)
+    if R == 0:
+        assert counters == {"fingerprint.host_bytes": a.nbytes // 4 * 4}
+        return
+    assert counters == {"fingerprint.card_bytes": 4 * R * C}
+    words = up.reshape(-1).view(torch.uint8)[: 4 * R * C].view(
+        torch.int32).view(R, C)
+    got = [hashing.layer1_sums(words).cpu().numpy().view(np.uint32)
+           for _ in range(2)]
+    twin = hashing.layer1_sums_ref(words).cpu().numpy().view(np.uint32)
+    np.testing.assert_array_equal(got[0], got[1])
+    np.testing.assert_array_equal(got[0], twin)
+    head = a.reshape(-1).view(np.uint8)[: 4 * R * C].view(np.uint32)
+    col, row, colw, roww = hashing.layer1_sums_host(head.reshape(R, C))
+    np.testing.assert_array_equal(
+        got[0], np.concatenate([col, colw, row, roww]))
+
+
+@pytest.mark.parametrize("n_bytes,dtype", [
+    (0, np.float64), (3, np.uint8), (8, np.float64),
+    (2 * hashing._UPLOAD_CHUNK, np.uint8),
+    (3 * hashing._UPLOAD_CHUNK + 40, np.float32)])
+def test_upload_through_pinned_chunks_is_the_array(dev, n_bytes, dtype):
+    """``hashing._upload`` gives an array's bytes on the card, whole
+    chunks, a ragged last chunk and none at all; the host array may
+    change once it has returned."""
+    a = np.random.default_rng(n_bytes).integers(
+        0, 256, n_bytes, np.uint8).view(dtype).reshape(-1, 1)
+    want = a.copy()
+    up = hashing._upload(a.reshape(-1).view(np.uint8), dev)
+    a[...] = 0
+    assert up.device.type == "cuda" and up.dtype == torch.uint8
+    np.testing.assert_array_equal(up.cpu().numpy(),
+                                  want.reshape(-1).view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_dedup_takes_the_fingerprints_upload(dev, dtype, monkeypatch):
+    """``unique_points_device`` fed the tensor ``content_fingerprint_device``
+    uploaded (f32 widened on the card) gives the unique rows and recon
+    of the host path, bit for bit, and of its own upload."""
+    pts = mesh_new_target("mesh_new_1m").astype(dtype)
+    want_u, want_r = tdedup.unique_points(pts, order_by="first")
+    fp, up = hashing.content_fingerprint_device(pts, dev)
+    runs = []
+    for uploaded in (up, None):
+        monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
+        uniq, recon = tdedup.unique_points_device(pts, fp, device=dev,
+                                                  uploaded=uploaded)
+        assert uniq.dtype == torch.float64
+        runs.append((uniq.cpu().numpy(), recon))
+    for got_u, got_r in runs:
+        np.testing.assert_array_equal(got_u.view(np.int64),
+                                      want_u.astype(np.float64).view(np.int64))
+        np.testing.assert_array_equal(got_r, want_r)
+
+
+def test_stored_operator_passes_between_host_and_card_fingerprints(
+        dev, tmp_path, monkeypatch, capsys):
+    """An operator that ``transfer_arrays`` saved on the CPU (the host's
+    fingerprint) loads on the card (the card's) without a dedup, and one
+    saved on the card loads on the CPU; a writable source is hashed on
+    the card as well, and no call takes it from the identity cache."""
+    from multimesh_tpu_torch import engine
+
+    src, tgt, fluid = _file_pair()
+    s_nodal, _ = testing.salvus_fixture_fields(src)
+    t_nodal, _ = testing.salvus_fixture_fields(tgt, fluid=fluid,
+                                               field_kind="linear")
+    src_data = np.stack(list(s_nodal.values()), axis=1)
+    old = np.stack(list(t_nodal.values()), axis=1)
+    heads = sum(a.nbytes // (4 * hashing.HASH_COLS) * 4 * hashing.HASH_COLS
+                for a in (src.points, tgt.points))
+    monkeypatch.setenv("MMT_PROFILE", "1")
+
+    def run(device, stored):
+        monkeypatch.setattr(tdedup, "_UNIQ_CACHE", {})
+        monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
+        utils_profile.reset_stages()
+        engine.transfer_arrays(
+            src.points, src_data, list(s_nodal), tgt.points, old,
+            ~fluid.astype(bool), lambda names: np.full(old.shape, np.nan),
+            stored_array=stored, device=device)
+        counters = utils_profile.counter_totals()
+        utils_profile.reset_stages()
+        assert "Ignoring stored operator" not in capsys.readouterr().out
+        return counters
+
+    assert (hashing.content_fingerprint_device(tgt.points, dev)[0]
+            == hashing.content_fingerprint(tgt.points))
+    for saver, loader in (("cpu", dev), (dev, "cpu")):
+        stored = tmp_path / str(saver)
+        saved = run(saver, stored)
+        loaded = run(loader, stored)
+        assert "dedup.card_rows" not in loaded
+        assert "dedup.host_rows" not in loaded
+        card = saved if saver == dev else loaded
+        assert card["fingerprint.card_bytes"] == heads
+        assert card["fingerprint.frozen_hits"] == 0
+        # nothing hashed on the host: a build's mesh prep takes the
+        # writable source's fingerprint from the identity cache
+        assert "fingerprint.host_bytes" not in card
+
+
+def test_big_endian_arrays_are_fingerprinted_and_transferred_on_card(
+        dev, monkeypatch):
+    """Coordinates in big-endian f64, as an HDF5 file may hold them:
+    ``content_fingerprint_device`` sums their bytes on the card and
+    returns ``content_fingerprint``'s value without a typed upload
+    (torch has no such dtype), and ``transfer_arrays`` writes bit for bit
+    what it writes for the native arrays."""
+    from multimesh_tpu_torch import engine
+
+    src, tgt, fluid = _file_pair()
+    s_nodal, _ = testing.salvus_fixture_fields(src)
+    t_nodal, _ = testing.salvus_fixture_fields(tgt, fluid=fluid,
+                                               field_kind="linear")
+    src_data = np.stack(list(s_nodal.values()), axis=1)
+    old = np.stack(list(t_nodal.values()), axis=1)
+    row = 4 * hashing.HASH_COLS
+    be = tgt.points.astype(">f8")
+    monkeypatch.setenv("MMT_PROFILE", "1")
+    utils_profile.reset_stages()
+    fp, up = hashing.content_fingerprint_device(be, dev)
+    counters = utils_profile.counter_totals()
+    utils_profile.reset_stages()
+    assert fp == hashing.content_fingerprint(be) and up is None
+    assert counters == {"fingerprint.card_bytes": be.nbytes // row * row}
+
+    def run(src_points, tgt_points):
+        monkeypatch.setattr(tdedup, "_UNIQ_CACHE", {})
+        monkeypatch.setattr(tdedup, "_UNIQ_DEV_CACHE", {})
+        sink = np.full(old.shape, np.nan)
+        engine.transfer_arrays(
+            src_points, src_data, list(s_nodal), tgt_points, old,
+            ~fluid.astype(bool), lambda names: sink, device=dev)
+        return sink
+
+    native = run(src.points, tgt.points)
+    big = run(src.points.astype(">f8"), be)
+    np.testing.assert_array_equal(big.view(np.int64), native.view(np.int64))
